@@ -1,29 +1,21 @@
-"""Artifact pipeline: the TPU replacement for the reference's FPGA export.
+"""Artifact pipeline: the JAX counterpart of the reference's FPGA export.
 
 The reference's deployment path (`4-bit quantization/torch_export.py` →
 `qnn_param_reader.py` → `qnn_mem_process.py` → `ultranet_param_gen.py`)
-packs 4-bit weights into PE×SIMD-tiled C++ HLS headers. Here the deployment
-target is a TPU: artifacts are npz arrays + a JSON manifest, weights ship as
-packed-int4 lanes consumed directly by the Pallas kernels, and the loader
-reapplies `NamedSharding` from the partition-rule table when given a mesh
-(the GSPMD analogue of the PE×SIMD tiling).
+packs 4-bit weights into PE×SIMD-tiled C++ HLS headers. ``hls`` still emits
+those headers for the reference's FPGA accelerator. The ViT serving
+artifact is npz arrays + a JSON manifest, weights ship as packed-int4 or
+int8 levels, and the loader reapplies `NamedSharding` from the
+partition-rule table when given a mesh.
+
+The UltraNet and HLS exporters build on the flax model zoo, so they load on
+first use; the ViT serving artifact (``vit``, ``io``, ``native``) imports
+without flax.
 """
 
+import importlib
+
 from .io import save_artifact_tree, load_artifact_tree
-from .ultranet import (
-    UltraNetExportConfig,
-    generate_ultranet_config,
-    export_ultranet_int,
-    save_ultranet_artifact,
-    load_ultranet_artifact,
-)
-from .hls import (
-    export_ultranet_hls,
-    inc_bias_tiles,
-    int_bit_width,
-    pack_words,
-    tile_pe,
-)
 from .vit import save_vit_int4_artifact, load_vit_int4_artifact
 from .native import (
     native_available,
@@ -32,6 +24,27 @@ from .native import (
     quantize_levels_host,
 )
 
+_LAZY = {
+    "UltraNetExportConfig": "ultranet",
+    "generate_ultranet_config": "ultranet",
+    "export_ultranet_int": "ultranet",
+    "save_ultranet_artifact": "ultranet",
+    "load_ultranet_artifact": "ultranet",
+    "export_ultranet_hls": "hls",
+    "inc_bias_tiles": "hls",
+    "int_bit_width": "hls",
+    "pack_words": "hls",
+    "tile_pe": "hls",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "native_available",
     "pack_int4_host",
@@ -39,16 +52,7 @@ __all__ = [
     "quantize_levels_host",
     "save_artifact_tree",
     "load_artifact_tree",
-    "UltraNetExportConfig",
-    "generate_ultranet_config",
-    "export_ultranet_int",
-    "save_ultranet_artifact",
-    "load_ultranet_artifact",
     "save_vit_int4_artifact",
     "load_vit_int4_artifact",
-    "export_ultranet_hls",
-    "pack_words",
-    "tile_pe",
-    "inc_bias_tiles",
-    "int_bit_width",
+    *_LAZY,
 ]

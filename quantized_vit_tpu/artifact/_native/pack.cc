@@ -5,7 +5,7 @@
 // w_bit values packed LSB-first, two's-complement, into wide words). Here
 // the packing is a real compiled routine: signed int4 levels two-per-byte
 // along the K axis, the exact layout quant/packing.py defines and the
-// Pallas kernels unpack in VMEM:
+// serving forward unpacks:
 //
 //   dst[i, j] = (src[i, j] & 0xF) | (src[i + K/2, j] << 4),  i < K/2
 //

@@ -6,7 +6,7 @@ driven by `ultranet_param_gen.py:26-64`): per layer, int-quantized weights
 are SIMD-packed into big two's-complement words, re-tiled into a
 ``[PE][W_TILES]`` array of `ap_uint` literals, the folded-BN integer
 ``(inc, bias)`` tables into ``[PE][A_TILES]`` `ap_int` arrays with derived
-bit widths, plus `#define` geometry macros. The TPU serving path doesn't
+bit widths, plus `#define` geometry macros. The JAX serving path doesn't
 need any of this (see `artifact/ultranet.py`), but a reference user
 deploying to the same FPGA target does — so this module reproduces the
 artifact exactly from the flax params pytree.

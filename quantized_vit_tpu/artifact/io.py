@@ -145,7 +145,7 @@ def load_artifact_tree(in_dir: str,
             f"{FORMAT_VERSION}")
     arrays = dict(np.load(os.path.join(in_dir, ARRAYS)))
     registry = dict(dataclass_registry or {})
-    from ..models.vit import ViTConfig, QuantConfig
+    from ..configs import QuantConfig, ViTConfig
 
     registry.setdefault("ViTConfig", ViTConfig)
     registry.setdefault("QuantConfig", QuantConfig)

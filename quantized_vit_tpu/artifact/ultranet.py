@@ -6,7 +6,7 @@ params to npz + config.json; `ultranet_param_gen.py` drives
 BN+activation into integer (inc, bias) tables, SIMD-pack nibbles and emit
 C++ HLS headers.
 
-TPU flow (this module): one pass over the flax params/batch_stats pytree
+JAX flow (this module): one pass over the flax params/batch_stats pytree
 produces the integer tensors :class:`UltraNetInt` consumes —
 ``weight_quantize_int`` levels and ``bn_act_quantize_int`` (inc, bias) — and
 a config table mirroring `torch_export.py:15-71`'s per-layer geometry. The
@@ -32,8 +32,7 @@ class UltraNetExportConfig:
     """Per-pipeline export hyperparameters (ultranet_param_gen.py:14-22).
 
     The reference also carries per-layer SIMD/PE tables — an FPGA memory
-    geometry with no TPU meaning; the packed-int4 lane layout plus the
-    Pallas block shapes play that role here.
+    geometry with no meaning here; the packed-int4 layout plays that role.
     """
 
     w_bit: int = 4

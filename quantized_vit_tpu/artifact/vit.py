@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional
 import jax
 import numpy as np
 
-from ..models.vit import ViTConfig
+from ..configs import QuantConfig, ViTConfig
 from .io import load_artifact_tree, save_artifact_tree
 
 
@@ -30,11 +30,10 @@ def save_vit_int4_artifact(out_dir: str, art: Dict[str, Any],
 
 
 def _cfg_from_meta(meta: Dict[str, Any]) -> ViTConfig:
-    from ..models.layers import QuantConfig
-
     raw = dict(meta["cfg"])
     q = {k: (tuple(v) if isinstance(v, list) else v)
          for k, v in raw.pop("quant").items()}
+    q.pop("fused_vjp", None)  # a training-only field artifacts once saved
     for k in ("heads_per_block", "hidden_per_block"):
         if raw.get(k) is not None:
             raw[k] = tuple(raw[k])

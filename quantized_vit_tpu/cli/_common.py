@@ -1,4 +1,5 @@
-"""Shared CLI plumbing: dataset flags, model builders, seeding."""
+"""Shared CLI plumbing: compile cache, dataset flags, model builders,
+seeding."""
 
 from __future__ import annotations
 
@@ -7,6 +8,27 @@ import os
 from typing import Tuple
 
 import numpy as np
+
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and no
+    other directory is set. Otherwise the cache goes to ``.jax_cache`` at
+    the repository root: a fixed path, because the path is part of the
+    cache key. Call before the first compilation of the process."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    path = os.path.join(_REPO_ROOT, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def set_seed(seed: int):

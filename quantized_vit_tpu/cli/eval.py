@@ -86,4 +86,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from ._common import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -5,20 +5,17 @@ Loads a ViT INT4 artifact (cli.export vit), starts the
 rate, and reports throughput/latency/batch-occupancy — the serving half of
 BASELINE.md's throughput target.
 
-Multi-device serving (``--mesh-model N``) routes through the AUDITED
-explicit shard_map paths, never the GSPMD loader placement (the round-3
-audit measured GSPMD-inferred communication at 26.9% efficiency vs 55.4%
-for the explicit TP path, and GSPMD cannot partition the Pallas kernels
-at all — docs/SCALING.md):
+Multi-device serving (``--mesh-model N``) routes through the explicit
+shard_map paths, never the GSPMD loader placement (the collectives audit,
+parallel/audit.py, shows GSPMD resharding around every attention):
 
 - ``--mesh-mode tp`` (default): Megatron-style tensor parallel
-  (serve/vit_tp.py — int8 activation all-gathers, ring reduce-scatters,
+  (serve/vit_tp.py — int8 activation all-gathers, reduce-scatters,
   exactly 2 AG + 2 RS per block). The latency configuration.
 - ``--mesh-mode fsdp``: weight-gather data parallel (serve/vit_fsdp.py —
   weights sharded over devices, 4 int-weight all-gathers per block,
   compute pure DP). The memory-sharded configuration for models that
-  don't fit one chip; AOT-audited >= 85% scaling efficiency
-  (docs/SCALING.md "weight-gather").
+  don't fit one card.
 """
 
 from __future__ import annotations
@@ -43,8 +40,6 @@ def parse_args(argv=None):
     p.add_argument("--mesh-mode", choices=["tp", "fsdp"], default="tp",
                    help="tp: explicit shard_map tensor parallel (latency); "
                         "fsdp: weight-gather data parallel (memory-sharded)")
-    p.add_argument("--no-pallas", action="store_true",
-                   help="XLA int path instead of Pallas kernels")
     p.add_argument("--input-uint8", action="store_true",
                    help="serve uint8 pixel inputs (JPEG-decoded bytes; "
                         "4x less host->device transfer — the production "
@@ -55,17 +50,29 @@ def parse_args(argv=None):
 def build_forward(args):
     """Artifact + flags -> (forward(images)->logits, cfg, batcher buckets).
 
-    Split out of main() so the CLI-level test can pin the collective
-    schedule of the function the CLI ACTUALLY serves (VERDICT r3 #1a)."""
+    Split out of main() so tests and chip_smoke.py drive the function the
+    CLI actually serves."""
     import jax
     import jax.numpy as jnp
 
-    from ..artifact import load_vit_int4_artifact
-    from ..serve import vit_int4_forward
-    from ..utils.native_prep import patchify_batch
+    from ..artifact.vit import load_vit_int4_artifact
+    from ..serve.vit_int4 import vit_int4_forward
+    from ..utils.native_prep import patchify_batch, patchify_batch_u8
 
     art, cfg = load_vit_int4_artifact(args.artifact)
-    use_pallas = (jax.default_backend() == "tpu") and not args.no_pallas
+
+    # --input-uint8: upload uint8 patch bytes (4x fewer host->device bytes
+    # than f32) and cast+scale on device (the forwards' input_scale)
+    if args.input_uint8:
+        def patchify(images):
+            return patchify_batch_u8(np.asarray(images, np.uint8),
+                                     cfg.patch_size)
+        input_scale = 1.0 / 255.0
+    else:
+        def patchify(images):
+            return patchify_batch(np.asarray(images, np.float32),
+                                  cfg.patch_size)
+        input_scale = None
 
     buckets = None
     if args.mesh_model:
@@ -79,15 +86,17 @@ def build_forward(args):
                 f"{devs.size}")
         mesh = Mesh(devs[:n].reshape(1, n), axis_names=("data", "model"))
         if args.mesh_mode == "tp":
-            from ..serve import (prepare_tp_artifact, shard_tp_artifact,
-                                 vit_int4_forward_tp)
+            from ..serve.vit_tp import (prepare_tp_artifact,
+                                        shard_tp_artifact,
+                                        vit_int4_forward_tp)
 
             art_m = shard_tp_artifact(
                 prepare_tp_artifact(art, cfg, n), mesh)
             fwd_fn = vit_int4_forward_tp
         else:
-            from ..serve import (prepare_fsdp_artifact, shard_fsdp_artifact,
-                                 vit_int4_forward_fsdp)
+            from ..serve.vit_fsdp import (prepare_fsdp_artifact,
+                                          shard_fsdp_artifact,
+                                          vit_int4_forward_fsdp)
 
             art_m = shard_fsdp_artifact(
                 prepare_fsdp_artifact(art, cfg, n), mesh)
@@ -103,47 +112,27 @@ def build_forward(args):
         x_sharding = NamedSharding(mesh, P(("data", "model")))
 
         def forward(images):
-            x = jax.device_put(
-                jnp.asarray(patchify_batch(np.asarray(images, np.float32),
-                                           cfg.patch_size)), x_sharding)
+            x = jax.device_put(patchify(images), x_sharding)
             return np.asarray(
-                fwd_fn(art_m, x, cfg, mesh, use_pallas=use_pallas,
-                       float_dtype=jnp.bfloat16, images_layout="patches"))
+                fwd_fn(art_m, x, cfg, mesh, float_dtype=jnp.bfloat16,
+                       images_layout="patches", input_scale=input_scale))
 
         # introspection hooks for the CLI-level routing test
         # (tests/cli/test_cli_drivers.py pins the collective schedule of
-        # the function the CLI actually serves — VERDICT r3 #1a)
+        # the function the CLI actually serves)
         forward.fwd_fn = fwd_fn
         forward.mesh = mesh
         forward.artifact = art_m
-        forward.use_pallas = use_pallas
+        forward.x_sharding = x_sharding
         return forward, cfg, buckets
 
-    # single-device: host-side patchify in the batcher's dispatch thread
-    # (overlapped with the device step): the on-device patch relayout
-    # costs ~220us/batch-32 (tools/exp_entry.py), the host writes these
-    # bytes during batch assembly anyway — vit_int4.py images_layout.
-    # --input-uint8: upload uint8 patch bytes (4x less transfer — the
-    # measured bottleneck over thin host links, docs/PERFORMANCE.md
-    # "Serving") and cast+scale on device (vit_int4_forward input_scale).
-    if args.input_uint8:
-        from ..utils.native_prep import patchify_batch_u8
-
-        def forward(images):
-            x = jnp.asarray(patchify_batch_u8(
-                np.asarray(images, np.uint8), cfg.patch_size))
-            return np.asarray(
-                vit_int4_forward(art, x, cfg, use_pallas=use_pallas,
-                                 images_layout="patches",
-                                 input_scale=1.0 / 255.0))
-    else:
-        def forward(images):
-            x = jnp.asarray(
-                patchify_batch(np.asarray(images, np.float32),
-                               cfg.patch_size))
-            return np.asarray(
-                vit_int4_forward(art, x, cfg, use_pallas=use_pallas,
-                                 images_layout="patches"))
+    # single device: host-side patchify in the batcher's dispatch thread,
+    # overlapped with the device step (vit_int4_forward images_layout)
+    def forward(images):
+        return np.asarray(
+            vit_int4_forward(art, jnp.asarray(patchify(images)), cfg,
+                             images_layout="patches",
+                             input_scale=input_scale))
 
     return forward, cfg, buckets
 
@@ -205,4 +194,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from ._common import enable_compile_cache
+
+    enable_compile_cache()
     main()

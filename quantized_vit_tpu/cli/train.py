@@ -24,7 +24,7 @@ from ._common import add_dataset_args, add_model_args, build_datasets, \
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="QViT GETA training (TPU)")
+    p = argparse.ArgumentParser(description="QViT GETA training")
     add_dataset_args(p)
     add_model_args(p)
     # optimizer (train.py:621-700 flags)
@@ -57,17 +57,11 @@ def parse_args(argv=None):
     p.add_argument("--group-lasso-lambda", type=float, default=1e-4)
     p.add_argument("--gl-start-epoch", type=int, default=0)
     # misc
-    p.add_argument("--fused-vjp", action="store_true",
-                   help="fused single-pass quantizer backward "
-                        "(ops/quant_vjp.py; measured SLOWER at ViT-B "
-                        "training shapes — docs/PERFORMANCE.md — kept "
-                        "for experimentation on other geometries)")
     p.add_argument("--matmul-dtype", default=None,
                    choices=[None, "bfloat16"],
                    help="mixed-precision QAT: dense/conv/attention dots "
-                        "on the bf16 MXU, quantizer math stays f32 "
-                        "(63.5 -> ~49 ms/step at ViT-B/32 on v5e — "
-                        "docs/PERFORMANCE.md)")
+                        "in bf16 with f32 accumulation, quantizer math "
+                        "stays f32")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--out-dir", default="runs/train")
     p.add_argument("--no-tensorboard", action="store_true",
@@ -113,8 +107,7 @@ def main(argv=None):
     # (model_to_quantize_model(num_bits=32, ...) — train.py:247-250)
     model, cfg = build_model(
         args, QuantConfig(enabled=True,
-                          matmul_dtype=getattr(args, "matmul_dtype", None),
-                          fused_vjp=bool(getattr(args, "fused_vjp", False))))
+                          matmul_dtype=getattr(args, "matmul_dtype", None)))
     x0 = jnp.zeros((1, args.img_size, args.img_size, 3), jnp.float32)
     params = flax.core.unfreeze(
         model.init(jax.random.PRNGKey(args.seed), x0)["params"])
@@ -261,4 +254,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from ._common import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -3,7 +3,7 @@
 The reference discovers these by tracing torch.jit -> ONNX and running the
 "pzig" partition algorithm (dependency_graph/pruning_dependency.py:347-538,
 graph/graph.py:107-267). A jaxpr carries no module identity, so the
-TPU-native design goes the way SURVEY.md §7 recommends: each model family
+JAX design goes the way SURVEY.md §7 recommends: each model family
 declares its dependency structure from its config — which is exactly the
 fixed point the reference's tracer computes for these architectures:
 

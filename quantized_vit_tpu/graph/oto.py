@@ -2,7 +2,7 @@
 
 Reference: only_train_once/__init__.py:10-444 (`class OTO`): wraps graph
 construction, optimizer factories (`.geta`, `.hesso`), subnet construction,
-cost metrics and unprunable marking. The TPU-native facade takes a flax
+cost metrics and unprunable marking. The JAX facade takes a flax
 module + params pytree instead of a torch module + dummy input — node groups
 come from the declarative builders (graph/builders.py) instead of a
 torch.jit trace.

@@ -5,7 +5,7 @@ the result into Node objects (graph/graph.py:107-267), then searches it with
 a tiny graph-expression language borrowed from hiddenlayer ("mul > transpose
 > matmul", transform/ge.py:9-170, used via Graph.search at graph.py:664-673).
 
-The TPU-native equivalent traces with ``jax.make_jaxpr`` — the functional IR
+The JAX equivalent traces with ``jax.make_jaxpr`` — the functional IR
 XLA actually compiles — into the same Node shape (op, inputs, outputs,
 param_names), and searches it with the same ``a > b > c`` chain language.
 The declarative node groups in builders.py remain the source of truth for

@@ -6,7 +6,7 @@ weights loaded at QViT_with_GETA/train.py:236-245, QAT checkpoints saved as
 ``ultranet_4w4a.pt`` consumed by the FPGA export driver
 (4-bit quantization/torch_export.py:8-12). This package converts those
 state dicts into this framework's flax params pytrees (and back), so a
-reference user can bring their existing checkpoints to TPU without
+reference user can bring their existing checkpoints here without
 retraining.
 """
 

@@ -157,7 +157,7 @@ def vit_params_to_torch(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
 
     The exact inverse of :func:`vit_params_from_torch`; feed through
     ``{k: torch.as_tensor(v) for ...}`` and ``ref_model.load_state_dict`` to
-    run a TPU-trained model back in the reference codebase.
+    run a model trained here back in the reference codebase.
     """
     out: Dict[str, np.ndarray] = {}
 

@@ -15,7 +15,7 @@ traces the fake-quant forward into float ops anyway). ``bake_weight_quant``
 additionally replaces each kernel with its dequantized LSFQ levels
 (weight-quant numerics preserved exactly; activation fake-quant is a
 training construct the reference's onnx consumers also drop). The INT4
-integer path ships via the TPU artifact (artifact/vit.py), not ONNX.
+integer path ships via the serving artifact (artifact/vit.py), not ONNX.
 
 The ``onnx`` pip package is not available in this build image; the
 exporter raises a clear error in that case and the tests cover module

@@ -1,4 +1,4 @@
-"""Quantized flax layers: the TPU-native counterpart of the reference's
+"""Quantized flax layers: the JAX counterpart of the reference's
 QuantizeLinear/QuantizeConv2d module surgery.
 
 Reference semantics (quant_layers.py:303-590):
@@ -21,15 +21,14 @@ equivalents (the FP32 baseline path, BASELINE.json config 3).
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Tuple
 
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
-from ..quant.lsfq import (lsfq_linear, lsfq_nonlinear,
-                          lsfq_nonlinear_fused, dge)
+from ..configs import QuantConfig
+from ..quant.lsfq import lsfq_linear, lsfq_nonlinear, dge
 
 QUANT_PARAM_NAMES = (
     "d_quant_wt", "q_m_wt", "t_quant_wt",
@@ -39,55 +38,13 @@ QUANT_PARAM_NAMES = (
 
 def _mm_cast(config, x, kernel):
     """Mixed-precision dot operands (QuantConfig.matmul_dtype): cast the
-    two operands for the MXU. Returns (x, kernel, mixed); callers set
-    preferred_element_type=f32 ONLY when mixed — forcing f32 accumulation
-    unconditionally regressed the pure-bf16 unquantized baseline from
-    36.5 to 49 ms/step (measured; its dots were bf16-in/bf16-out)."""
+    two operands. Returns (x, kernel, mixed); callers set
+    preferred_element_type=f32 ONLY when mixed, so the pure-bf16
+    unquantized baseline keeps its bf16-in/bf16-out dots."""
     if config.enabled and config.matmul_dtype is not None:
         dt = jnp.dtype(config.matmul_dtype)
         return x.astype(dt), kernel.astype(dt), True
     return x, kernel, False
-
-
-@dataclasses.dataclass(frozen=True)
-class QuantConfig:
-    """Static quantization configuration for a model (hashable, jit-safe).
-
-    Mirrors the reference's QuantizationType/QuantizationMode enums
-    (quant_layers.py:20-29) plus the clip ranges (init_quantization defaults,
-    quant_layers.py:311-312).
-    """
-
-    enabled: bool = True
-    nonlinear: bool = True          # SYMMETRIC_NONLINEAR vs SYMMETRIC_LINEAR
-    use_dge: bool = False           # DGE quantizer (weights only)
-    quantize_acts: bool = True      # WEIGHT_AND_ACTIVATION vs WEIGHT_ONLY
-    weight_clip: Tuple[float, float] = (-2.0, 2.0)
-    act_clip: Tuple[float, float] = (-2.0, 2.0)
-    init_bits: float = 32.0         # bits at initialization (train.py:247 uses 32)
-    dge_bits: float = 4.0
-    # Mixed-precision QAT (round 5, TPU-native — the f32-only reference
-    # has no equivalent): run the DENSE/CONV dots on the bf16 MXU (2x the
-    # f32 rate) while ALL quantizer math — fake-quant forward, the
-    # (d, q_m, t) custom-VJP grads, LN/softmax — stays f32. Numerics:
-    # fake-quant values are exact multiples of d in f32; the bf16 cast
-    # rounds them to 8 mantissa bits inside the dot only (standard
-    # mixed-precision semantics, f32 accumulation via
-    # preferred_element_type). Convergence validated on the sensitive
-    # rehearsal task (tools/bench_train.py --matmul-dtype note).
-    matmul_dtype: Optional[str] = None  # None (f32) | "bfloat16"
-    # Fused single-pass quantizer backward (ops/quant_vjp.py Pallas kernel
-    # on TPU, jnp chain elsewhere). MEASURED SLOWER at ViT-B training
-    # shapes (181 vs 159 ms/step — the per-site kernel boundary re-reads
-    # what XLA's chain kept fused; docs/PERFORMANCE.md "QAT training
-    # step"), so off by default; kept parity-tested for wider-tensor
-    # regimes. Same forward; grad_d/q_m/t differ from the unfused chain
-    # by f32 reduction order only.
-    fused_vjp: bool = False
-
-    @staticmethod
-    def off() -> "QuantConfig":
-        return QuantConfig(enabled=False)
 
 
 class _QuantParamsMixin:
@@ -112,12 +69,6 @@ class _QuantParamsMixin:
         if self.config.use_dge:
             return dge(x, d, q_m, clip_val, q_s, jnp.asarray(self.config.dge_bits))
         if self.config.nonlinear:
-            if self.config.fused_vjp:
-                # clip is a static config tuple -> the fused custom_vjp
-                # takes it as compile-time floats (ops/quant_vjp.py)
-                return lsfq_nonlinear_fused(x, d, q_m, t,
-                                            float(clip[0]), float(clip[1]),
-                                            0.0)
             return lsfq_nonlinear(x, d, q_m, t, clip_val, q_s)
         return lsfq_linear(x, d, q_m, clip_val, q_s)
 
@@ -198,14 +149,12 @@ class QuantConv(nn.Module, _QuantParamsMixin):
 
         # Non-overlapping patch convs (stride == kernel, VALID, ungrouped
         # — the ViT patch embed) run as the EXACT space-to-depth GEMM.
-        # Round-5 measured forensics (tools/exp_qat_bwd2.py): with a
-        # trainable activation quantizer here, its (d, q_m, t) scalar
-        # grads need g = dL/d(quantized input), and for the conv form XLA
-        # emits a transposed conv back to [B, H, W, 3] — 3 output
-        # channels on a 128-lane MXU — costing ~95 ms of the 159 ms
-        # ViT-B/32 QAT step, depth-independently. The GEMM form's input
-        # gradient is an ordinary [*, D] x [D, p*p*C] dot: step 159 ->
-        # ~64 ms. Quantization surface unchanged: the per-tensor
+        # With a trainable activation quantizer here, its (d, q_m, t)
+        # scalar grads need g = dL/d(quantized input), and for the conv
+        # form XLA emits a transposed conv back to [B, H, W, 3] — a
+        # 3-output-channel conv that maps badly onto matrix units. The
+        # GEMM form's input gradient is an ordinary [*, D] x [D, p*p*C]
+        # dot. Quantization surface unchanged: the per-tensor
         # quantizer is permutation-invariant, so quantizing the
         # patchified view equals quantizing the image (f32 reduction
         # order in the scalar grads differs; values identical).

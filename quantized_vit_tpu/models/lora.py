@@ -9,7 +9,7 @@ NO_PRUNE, lora_B prunes out-rows together with the base weight; subnet
 construction can merge the adapter into the base (pruning_compression.py's
 LoRA merge export).
 
-TPU-native layout (flax): ``kernel [in, out]``, ``lora_a [in, r]``,
+Layout (flax): ``kernel [in, out]``, ``lora_a [in, r]``,
 ``lora_b [r, out]``; forward ``y = x@kernel + (alpha/r) * (x@lora_a)@lora_b
 (+ bias)``. Freezing is the optimizer's concern in JAX — use
 :func:`lora_grad_mask` with ``optax.masked`` or zero the base grads.

@@ -6,7 +6,7 @@ quantize torchvision ResNet-50 (tests/quantization/test_quant_model.py:31-
 110) and trace arbitrary CNNs into node groups (dependency_graph/
 pruning_dependency.py steps 0-10, incl. the residual-addition connected
 components that tie every conv feeding a skip connection into one pruning
-decision). This module provides the equivalent flax family so the TPU graph
+decision). This module provides the equivalent flax family so the graph
 layer demonstrably handles residual CNNs, not just ViT/UltraNet:
 
 - stem 3x3 conv -> BN -> ReLU
@@ -20,7 +20,7 @@ layers model_to_quantize_model swaps in — quant_model.py:15-82), so
 `init_quant_params_tree` / GETA / export all apply unchanged.
 
 Compressed subnets are explicit configs: ``widths`` (per-stage stream
-width) and ``inner_widths`` (per-block conv1 width) — the TPU-functional
+width) and ``inner_widths`` (per-block conv1 width) — the functional
 replacement for the reference's in-place module surgery.
 """
 

@@ -6,7 +6,7 @@ PhiAttention (only_train_once/operation/operator.py:1012-1130, 1253-1290) —
 pruned at HEAD granularity via BaseMultiHeadAttentionOTO (operator.py:810-975
 with head-idx -> dim-idx expansion at :920-950), alongside EmbeddingOTO
 (operator.py:677-706). This model family exercises that coverage in the
-TPU-native framework: a text/sequence encoder whose attention uses three
+JAX framework: a text/sequence encoder whose attention uses three
 QuantDense projections, with a token embedding table and learned position
 embeddings, so the pruning graph must handle
 

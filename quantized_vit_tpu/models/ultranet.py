@@ -1,6 +1,6 @@
 """UltraNet 4-bit CNN + YOLO detection head (flax).
 
-TPU-native re-design of `4-bit quantization/mymodel.py`:
+JAX re-design of `4-bit quantization/mymodel.py`:
 
 - 8x [DoReFa-quantized 3x3 conv (W4) -> BatchNorm -> 4-bit activation quant]
   with MaxPools after layers 1-4, then a 1x1 quantized conv to 36 channels
@@ -12,7 +12,7 @@ TPU-native re-design of `4-bit quantization/mymodel.py`:
 
 Also provides :class:`UltraNetInt` — the folded-BN *integer* inference
 variant that consumes the artifact pipeline's int weights and (inc, bias)
-tables (the TPU analogue of what the reference's generated FPGA HLS headers
+tables (the JAX analogue of what the reference's generated FPGA HLS headers
 compute; quantization.py:68-89, SURVEY.md §3.6).
 
 Layout: NHWC. Channel config mirrors mymodel.py:73-124.
@@ -244,7 +244,7 @@ class UltraNet(nn.Module):
 
 
 class UltraNetInt(nn.Module):
-    """Folded-BN integer UltraNet inference (the TPU artifact path).
+    """Folded-BN integer UltraNet inference (the JAX artifact path).
 
     Consumes integer conv weights (int32 levels in ±(2^(w_bit-1)-1)) and
     per-layer (inc, bias) int tables from

@@ -1,6 +1,6 @@
 """Vision Transformer family (flax), quantization-aware via QuantConfig.
 
-TPU-native re-design of the reference's timm-derived model
+JAX re-design of the reference's timm-derived model
 (QViT_with_GETA/vit_model.py:211-483), matching its architecture exactly:
 
 - PatchEmbed: patch_size conv stride patch_size -> flatten -> optional norm
@@ -17,60 +17,22 @@ TPU-native re-design of the reference's timm-derived model
 LayerNorms, softmax and residuals stay float (the reference never quantizes
 them — SURVEY.md §3.4); only Dense/Conv layers carry quant params.
 
-Inputs are NHWC (TPU-native layout). Factories mirror vit_model.py:351-483.
+Inputs are NHWC. ``ViTConfig`` lives in the flax-free ``configs`` module
+(re-exported here). Factories mirror vit_model.py:351-483.
 """
 
 from __future__ import annotations
 
-import dataclasses
-from functools import partial
-from typing import Any, Optional, Tuple
+from typing import Optional
 
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
-from .layers import QuantConfig, QuantConv, QuantDense
+from ..configs import QuantConfig, ViTConfig
+from .layers import QuantConv, QuantDense
 
-
-@dataclasses.dataclass(frozen=True)
-class ViTConfig:
-    img_size: int = 224
-    patch_size: int = 16
-    in_channels: int = 3
-    num_classes: int = 1000
-    embed_dim: int = 768
-    depth: int = 12
-    num_heads: int = 12
-    mlp_ratio: float = 4.0
-    qkv_bias: bool = True
-    qk_scale: Optional[float] = None
-    representation_size: Optional[int] = None  # pre-logits dim (in21k)
-    drop_ratio: float = 0.0
-    attn_drop_ratio: float = 0.0
-    drop_path_ratio: float = 0.0
-    quant: QuantConfig = QuantConfig.off()
-    # Per-block overrides for compressed subnets (compress/): after head /
-    # hidden pruning blocks have non-uniform widths (pruning_compression.py
-    # slices the torch modules in place; here the slim config is explicit).
-    heads_per_block: Optional[Tuple[int, ...]] = None
-    hidden_per_block: Optional[Tuple[int, ...]] = None
-
-    def block_heads(self, i: int) -> int:
-        return (self.heads_per_block[i] if self.heads_per_block is not None
-                else self.num_heads)
-
-    def block_hidden(self, i: int) -> int:
-        return (self.hidden_per_block[i] if self.hidden_per_block is not None
-                else int(self.embed_dim * self.mlp_ratio))
-
-    @property
-    def num_patches(self) -> int:
-        return (self.img_size // self.patch_size) ** 2
-
-    @property
-    def num_tokens(self) -> int:
-        return self.num_patches + 1  # + cls token (vit_model.py:277, 297)
+__all__ = ["QuantConfig", "ViTConfig", "VisionTransformer"]
 
 
 class DropPath(nn.Module):
@@ -130,8 +92,8 @@ class ViTAttention(nn.Module):
         qkv = jnp.transpose(qkv, (2, 0, 3, 1, 4))  # [3, B, H, N, hd]
         q, k, v = qkv[0], qkv[1], qkv[2]
 
-        # mixed-precision QAT (QuantConfig.matmul_dtype): score/AV dots on
-        # the bf16 MXU with f32 accumulation; softmax stays f32
+        # mixed-precision QAT (QuantConfig.matmul_dtype): score/AV dots in
+        # bf16 with f32 accumulation; softmax stays f32
         if c.quant.enabled and c.quant.matmul_dtype is not None:
             mdt = jnp.dtype(c.quant.matmul_dtype)
             attn = jnp.einsum("bhnd,bhmd->bhnm", q.astype(mdt),

@@ -1,46 +1,13 @@
-"""Pallas TPU kernels and XLA reference paths for quantized compute."""
+"""Quantized compute of the serving path, as plain jax.numpy/lax for XLA."""
 
-from .int4_matmul import (
-    int4_matmul,
-    int8_matmul,
-    int4_matmul_xla,
-    int8_matmul_xla,
-    quant_matmul_fa,
-)
-from .fused import (fused_mlp, fused_mlp_xla, fused_quant_matmul,
-                    fused_quant_matmul_xla)
-from .attention import (
-    attention_block,
-    attention_qkv,
-    attention_qkv_proj,
-    attention_qkv_xla,
-    flash_attention,
-    flash_attention_xla,
-)
+from .fused import fused_mlp_xla, fused_quant_matmul_xla
+from .attention import attention_qkv_xla
 from .reference import int4_matmul_ref, int8_matmul_ref, quant_linear_ref
 
-from .block_stack import vit_block_stack
-from .ring_gather import fused_mlp_gather, gather_rows
-
 __all__ = [
-    "int4_matmul",
-    "vit_block_stack",
-    "gather_rows",
-    "fused_mlp_gather",
-    "quant_matmul_fa",
-    "int8_matmul",
-    "int4_matmul_xla",
-    "int8_matmul_xla",
-    "fused_quant_matmul",
     "fused_quant_matmul_xla",
-    "fused_mlp",
     "fused_mlp_xla",
-    "attention_block",
-    "attention_qkv",
-    "attention_qkv_proj",
     "attention_qkv_xla",
-    "flash_attention",
-    "flash_attention_xla",
     "int4_matmul_ref",
     "int8_matmul_ref",
     "quant_linear_ref",

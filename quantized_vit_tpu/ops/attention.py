@@ -1,159 +1,28 @@
-"""Pallas attention kernel for the ViT serving path.
+"""Attention of the ViT serving path, as plain XLA.
 
-One program per (batch, head): the full [N, N] score matrix lives in VMEM
-(ViT sequences are ~200 tokens — vit_model.py:126,251 — so no KV tiling is
-needed), softmax runs in f32 registers, and nothing but q/k/v in and the
-attention output out ever touches HBM. Replaces the XLA path that
-materialized the f32 [B, H, N, N] score tensor (~15 MB at batch 8) twice per
-block.
+``attention_qkv_xla`` takes the fused qkv projection output [B, N, 3*H*hd]
+and returns the attention output, optionally quantized to the proj layer's
+int8 activation levels (the reference quantizes the proj input —
+quant_layers.py:356-381 via vit_model.py:150-152 — so emitting levels here
+keeps the same quantization surface and lets proj run prologue-free).
 
-Padded key positions (the serving path pads 197 tokens up to a sublane
-multiple) are masked to -inf before the softmax, so padded tokens never leak
-into real rows. Padded *query* rows produce garbage that the caller slices
-away.
-
-The optional ``out_quant`` epilogue emits the projection layer's int8
-activation levels directly (the reference quantizes the proj input —
-quant_layers.py:356-381 via vit_model.py:150-152 — so this is the same
-quantization surface, just fused), letting the proj matmul run prologue-free
-on int8 inputs.
+Padded key positions (the serving path pads 197 tokens up to a multiple of
+16) are masked before the softmax, so padded tokens never leak into real
+rows. Padded *query* rows produce values that the caller never reads.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from .fused import _quantize_f32
 
 
-def _attn_kernel(q_ref, k_ref, v_ref, *rest, sm_scale: float, n_valid: int,
-                 quantize: bool, out_pow: bool, out_top: int = 0):
-    if quantize:
-        d_ref, t_ref, o_ref = rest
-    else:
-        (o_ref,) = rest
-    q = q_ref[0, 0]
-    k = k_ref[0, 0]
-    v = v_ref[0, 0]
-    n = q.shape[0]
-    s = jax.lax.dot_general(
-        q, k, dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    ) * sm_scale
-    if n_valid < n:
-        col = jax.lax.broadcasted_iota(jnp.int32, (n, n), dimension=1)
-        s = jnp.where(col < n_valid, s, -1e30)
-    s = s - jnp.max(s, axis=-1, keepdims=True)
-    p = jnp.exp(s)
-    p = p / jnp.sum(p, axis=-1, keepdims=True)
-    o = jax.lax.dot_general(
-        p.astype(v.dtype), v, dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    if quantize:
-        o_ref[0, 0] = _quantize_f32(o, d_ref[0], t_ref[0], out_top,
-                                    out_pow)
-    else:
-        o_ref[0, 0] = o.astype(o_ref.dtype)
-
-
-def flash_attention(*args, **kw):
-    """Public entry: ``out_top`` must be a compile-time int (clip bounds
-    must be immediates in Mosaic — ops/fused.py:_fused_kernel note)."""
-    v = kw.get("out_top")
-    if v is not None and not isinstance(v, int):
-        kw["out_top"] = int(v)
-    if kw.get("out_d") is not None and not (kw.get("out_top") or 0) >= 1:
-        raise ValueError(
-            "flash_attention: out_d given but out_top is "
-            f"{kw.get('out_top')!r}; the quantize epilogue needs the "
-            "layer's positive top level (QLayerArtifact.top)")
-    return _flash_attention(*args, **kw)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("sm_scale", "n_valid", "out_top", "out_pow",
-                     "out_dtype", "interpret"),
-)
-def _flash_attention(
-    q: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    *,
-    sm_scale: float,
-    n_valid: int | None = None,
-    out_d=None, out_t=None, out_top=None, out_pow: bool = False,
-    out_dtype=jnp.bfloat16,
-    interpret: bool = False,
-) -> jax.Array:
-    """softmax(q @ k^T * sm_scale) @ v, one VMEM-resident program per (b, h).
-
-    q/k/v: [B, H, N, hd] float. ``n_valid``: real token count (keys >= it are
-    masked; default all). ``out_d/out_t/out_top``: when given, the output is
-    quantized to int8 LSFQ levels in the epilogue.
-
-    Returns [B, H, N, hd] (``out_dtype``, or int8 when quantizing).
-    """
-    b, h, n, hd = q.shape
-    quantize = out_d is not None
-    if n_valid is None:
-        n_valid = n
-    out_eltype = jnp.int8 if quantize else out_dtype
-
-    spec = pl.BlockSpec((1, 1, n, hd), lambda i, j: (i, j, 0, 0),
-                        memory_space=pltpu.VMEM)
-    in_specs = [spec, spec, spec]
-    operands = [q, k, v]
-    if quantize:
-        smem = lambda: pl.BlockSpec(memory_space=pltpu.SMEM)
-        in_specs += [smem(), smem()]
-        operands += [jnp.asarray(out_d, jnp.float32).reshape(1),
-                     jnp.asarray(out_t, jnp.float32).reshape(1)]
-
-    return pl.pallas_call(
-        functools.partial(_attn_kernel, sm_scale=sm_scale, n_valid=n_valid,
-                          quantize=quantize, out_pow=out_pow,
-                          out_top=out_top or 0),
-        grid=(b, h),
-        in_specs=in_specs,
-        out_specs=spec,
-        out_shape=jax.ShapeDtypeStruct((b, h, n, hd), out_eltype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b * h * n * n * hd * 2,
-            bytes_accessed=3 * b * h * n * hd * q.dtype.itemsize
-            + b * h * n * hd * jnp.dtype(out_eltype).itemsize,
-            transcendentals=b * h * n * n,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-        ),
-        interpret=interpret,
-    )(*operands)
-
-
-def _dyn_int8(x):
-    """Dynamic symmetric per-tensor int8 quantization: returns (levels,
-    scale) with levels = round(x/scale) in [-127, 127]. Shared by the INT8
-    attention kernel and its XLA mirror (bit-identical)."""
-    x = x.astype(jnp.float32)
-    scale = jnp.maximum(jnp.max(jnp.abs(x)), 1e-30) * (1.0 / 127.0)
-    lv = jnp.clip(jnp.round(x * (1.0 / scale)), -127.0, 127.0)
-    return lv.astype(jnp.int8), scale
-
-
 def _n_keys(n: int, n_valid: int, itemsize: int) -> int:
-    """Key/value row count: padded query rows must attend over all real
-    tokens, but key rows beyond ``n_valid`` are masked anyway, so the k/v
-    slice stops at the next sublane boundary (16 rows bf16 / 8 rows f32).
-    With 197 tokens padded to 224 query rows this keeps the score matrix at
-    [224, 208] instead of [224, 224] — softmax is the VPU-bound part of the
-    kernel, so score-matrix elements are the direct cost."""
+    """Key/value row count: key rows beyond ``n_valid`` are masked anyway,
+    so the k/v slice stops at the next multiple of 16 (bf16) or 8 (f32)
+    rows instead of running over every padded row."""
     sub = 16 if itemsize == 2 else 8
     return min(n, -(-n_valid // sub) * sub)
 
@@ -161,739 +30,25 @@ def _n_keys(n: int, n_valid: int, itemsize: int) -> int:
 _LOG2E = 1.4426950408889634
 
 
-def _score_one_head(q, k, sm_scale, int_attention):
-    """Score matmul for one head, in log2 units: sm_scale*log2(e) is
-    pre-folded into q (an [n, hd] multiply instead of an [n, n] one), so the
-    softmax can use exp2 directly — one fewer VPU pass over the [n, n]
-    score matrix than exp (which lowers to exp2(x*log2e) on the VPU)."""
-    if int_attention:
-        q_lv, q_s = _dyn_int8(q * sm_scale)
-        k_lv, k_s = _dyn_int8(k)
-        return jax.lax.dot_general(
-            q_lv, k_lv, dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        ).astype(jnp.float32) * (q_s * k_s * _LOG2E)
-    return jax.lax.dot_general(
-        (q.astype(jnp.float32) * (sm_scale * _LOG2E)).astype(q.dtype), k,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-
-def _softmax_av(s2, v, col, n_valid, int_attention):
-    """Masked softmax with DEFERRED normalization: returns (o_un, p_sum) so
-    the row-sum division runs on the [n, hd] attention output instead of
-    the [n, n] probability matrix (3.25x fewer elements at ViT-B shapes) —
-    and the caller can fold its own scaling (e.g. the quantizer's 1/d) into
-    the same divide. ``s2`` is in log2 units (see _score_one_head); exp2 and
-    the row max stay f32.
-
-    Measured alternatives that LOST on v5e (tools/exp_attn.py): row sums on
-    the MXU via a ones column in v (unaligned 65-lane concat/slice relayouts
-    cost more than the VPU reduction saves), transposed [keys, queries]
-    score layout (sublane reductions aren't cheaper), and approx-reciprocal
-    normalization (breaks bit-parity with the XLA mirror for ~2us)."""
-    if col is not None:
-        s2 = jnp.where(col < n_valid, s2, -1e30)
-    if int_attention:
-        # p must be normalized to [0, 1] for the fixed 1/127 scale
-        p = jnp.exp2(s2 - jnp.max(s2, axis=-1, keepdims=True))
-    else:
-        # Absolute exp2 with a fixed UPPER clamp instead of the row-max
-        # subtraction: softmax is shift-invariant, so skipping the
-        # subtraction is exact whenever s2 < 100 — guaranteed for
-        # LayerNorm-bounded ViT scores (|s2| = |q.k| * sm_scale * log2e,
-        # observed < 50) — and saves a reduce+subtract over the [n, n]
-        # score matrix. At the clamp boundary: 2^100 * n_keys * |v|max
-        # stays ~1e34 << f32 max (no overflow). No LOWER clamp (min is one
-        # VPU op where clip is two — ~12us/block at batch 32): exp2
-        # underflows to exactly 0, and the epsilon added to p_sum below
-        # keeps an all-underflow row at lv=0 instead of 0/0 NaN.
-        p = jnp.exp2(jnp.minimum(s2, 100.0))
-    if int_attention:
-        # unnormalized p in [0, 1]: fixed scale 1/127; v dynamically scaled
-        p_lv = jnp.round(p * 127.0).astype(jnp.int8)
-        v_lv, v_s = _dyn_int8(v)
-        o_un = jax.lax.dot_general(
-            p_lv, v_lv, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        ).astype(jnp.float32) * v_s
-        p_sum = jnp.sum(p_lv.astype(jnp.float32), axis=-1, keepdims=True)
-    else:
-        pb = p.astype(v.dtype)
-        o_un = jax.lax.dot_general(
-            pb, v, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        # epsilon: a row whose scores ALL underflowed exp2 (possible only
-        # without a lower clamp) divides by ~1e-30 instead of 0 -> lv 0
-        p_sum = jnp.sum(p, axis=-1, keepdims=True) + 1e-30
-    return o_un, p_sum
-
-
-def _attn_qkv_kernel(x_ref, *rest, heads: int, head_dim: int,
-                     sm_scale: float, n_valid: int, quantize: bool,
-                     out_pow: bool, int_attention: bool, out_top: int = 0,
-                     j_imgs: int = 1):
-    """Program over ``j_imgs`` images x ``heads`` of the RAW fused-qkv
-    matmul output layout [N, (3, H, hd)] — head slices are static lane
-    slices, so no HBM transpose of the [M, 3D] qkv tensor is ever
-    materialized.
-
-    The (image, head) task loop is software-pipelined: task i+1's score
-    matmul (MXU) is issued before task i's softmax (VPU) so the scheduler
-    can overlap the two units — the softmax is the serial bottleneck
-    otherwise. Two images per program measured 99us vs 122us for one at
-    ViT-B batch-32 (tools/exp_attn2.py: a longer task loop amortizes the
-    pipeline fill/drain; 4 regresses on VMEM pressure)."""
-    if quantize:
-        d_ref, t_ref, o_ref = rest
-    else:
-        (o_ref,) = rest
-    n = x_ref.shape[1]
-    nk = _n_keys(n, n_valid, x_ref.dtype.itemsize)
-    hdim = heads * head_dim
-    col = None
-    if n_valid < nk:
-        col = jax.lax.broadcasted_iota(jnp.int32, (n, nk), dimension=1)
-
-    def qkv_h(j, h):
-        x = x_ref[j]
-        q = x[:, h * head_dim:(h + 1) * head_dim]
-        k = x[:nk, hdim + h * head_dim:hdim + (h + 1) * head_dim]
-        v = x[:nk, 2 * hdim + h * head_dim:2 * hdim + (h + 1) * head_dim]
-        return q, k, v
-
-    tasks = [(j, h) for j in range(j_imgs) for h in range(heads)]
-    q0, k0, v0 = qkv_h(*tasks[0])
-    s_next = _score_one_head(q0, k0, sm_scale, int_attention)
-    v_cur = v0
-    for i, (j, h) in enumerate(tasks):
-        s_cur, v_use = s_next, v_cur
-        if i + 1 < len(tasks):
-            jn, hn = tasks[i + 1]
-            q1, k1, v_cur = qkv_h(jn, hn)
-            s_next = _score_one_head(q1, k1, sm_scale, int_attention)
-        o_un, p_sum = _softmax_av(s_cur, v_use, col, n_valid, int_attention)
-        if quantize and not out_pow:
-            # fold the quantizer's 1/d into the deferred normalization: one
-            # [n, 1] multiply instead of an [n, hd] pass
-            lv = jnp.clip(jnp.round(o_un * (1.0 / (p_sum * d_ref[0]))),
-                          -float(out_top), float(out_top))
-            o_ref[j, :, h * head_dim:(h + 1) * head_dim] = lv.astype(jnp.int8)
-        elif quantize:
-            o_ref[j, :, h * head_dim:(h + 1) * head_dim] = _quantize_f32(
-                o_un / p_sum, d_ref[0], t_ref[0], out_top, out_pow)
-        else:
-            o_ref[j, :, h * head_dim:(h + 1) * head_dim] = (
-                o_un / p_sum).astype(o_ref.dtype)
-
-
-def _attn_proj_kernel(x_ref, *rest, heads: int, head_dim: int,
-                      sm_scale: float, n_valid: int, out_pow: bool,
-                      int_attention: bool, out_top: int, j_imgs: int,
-                      fmt: str, has_bias: bool):
-    """attention + PROJECTION fused: the per-head int8 attention levels
-    accumulate in VMEM scratch and the row-parallel proj matmul + dequant
-    + residual run before anything returns to HBM — the [M, D] alv tensor
-    and a kernel launch disappear vs the attention/proj pair
-    (serve/vit_int4.py pipeline). Numerics identical to that pair: same
-    level math, same int8 x int8 proj dot, same f32 dequant+residual.
-
-    Ref order: x(qkv), w, scale, [bias], residual,
-    [smem d, t], o, alv_scratch[, w_lo, w_hi]."""
-    it = iter(rest)
-    w_ref = next(it)
-    scale_ref = next(it)
-    bias_ref = next(it) if has_bias else None
-    res_ref = next(it)
-    d_ref, t_ref = next(it), next(it)
-    o_ref = next(it)
-    alv_ref = next(it)
-    w_lo = w_hi = None
-    if fmt == "int4":
-        w_lo, w_hi = next(it), next(it)
-
-        @pl.when(pl.program_id(0) == 0)
-        def _unpack():
-            p = w_ref[:].astype(jnp.int32)
-            w_lo[:] = ((p << 28) >> 28).astype(jnp.int8)
-            w_hi[:] = (p >> 4).astype(jnp.int8)
-
-    n = x_ref.shape[1]
-    nk = _n_keys(n, n_valid, x_ref.dtype.itemsize)
-    hdim = heads * head_dim
-    col = None
-    if n_valid < nk:
-        col = jax.lax.broadcasted_iota(jnp.int32, (n, nk), dimension=1)
-
-    def qkv_h(j, h):
-        x = x_ref[j]
-        q = x[:, h * head_dim:(h + 1) * head_dim]
-        k = x[:nk, hdim + h * head_dim:hdim + (h + 1) * head_dim]
-        v = x[:nk, 2 * hdim + h * head_dim:2 * hdim + (h + 1) * head_dim]
-        return q, k, v
-
-    tasks = [(j, h) for j in range(j_imgs) for h in range(heads)]
-    q0, k0, v0 = qkv_h(*tasks[0])
-    s_next = _score_one_head(q0, k0, sm_scale, int_attention)
-    v_cur = v0
-    for i, (j, h) in enumerate(tasks):
-        s_cur, v_use = s_next, v_cur
-        if i + 1 < len(tasks):
-            jn, hn = tasks[i + 1]
-            q1, k1, v_cur = qkv_h(jn, hn)
-            s_next = _score_one_head(q1, k1, sm_scale, int_attention)
-        o_un, p_sum = _softmax_av(s_cur, v_use, col, n_valid, int_attention)
-        if not out_pow:
-            lv = jnp.clip(jnp.round(o_un * (1.0 / (p_sum * d_ref[0]))),
-                          -float(out_top), float(out_top))
-            alv_ref[j, :, h * head_dim:(h + 1) * head_dim] = lv.astype(
-                jnp.int8)
-        else:
-            alv_ref[j, :, h * head_dim:(h + 1) * head_dim] = _quantize_f32(
-                o_un / p_sum, d_ref[0], t_ref[0], out_top, out_pow)
-
-    dn = (((1,), (0,)), ((), ()))
-    k_half = hdim // 2
-    for j in range(j_imgs):
-        alv = alv_ref[j]
-        if fmt == "int4":
-            acc = jax.lax.dot_general(
-                alv[:, :k_half], w_lo[:], dimension_numbers=dn,
-                preferred_element_type=jnp.int32)
-            acc += jax.lax.dot_general(
-                alv[:, k_half:], w_hi[:], dimension_numbers=dn,
-                preferred_element_type=jnp.int32)
-        else:
-            acc = jax.lax.dot_general(
-                alv, w_ref[:], dimension_numbers=dn,
-                preferred_element_type=jnp.int32)
-        out = acc.astype(jnp.float32) * scale_ref[:]
-        if has_bias:
-            out = out + bias_ref[:]
-        o_ref[j] = (out + res_ref[j].astype(jnp.float32)).astype(o_ref.dtype)
-
-
-def _attn_block_kernel(x_ref, *rest, heads: int, head_dim: int,
-                       sm_scale: float, n_valid: int, out_pow: bool,
-                       act_pow: bool, act_folded: bool, int_attention: bool,
-                       act_top: int, out_top: int, j_imgs: int, fmt: str,
-                       has_qb: bool, has_pb: bool, ln_eps: float,
-                       qkv_stripes: int):
-    """The WHOLE attention residual branch in one program:
-
-      lv   = quant(LN(x))            int8  [jn, D]     (x read ONCE)
-      qkv  = lv @ Wqkv -> dequant    bf16  [j, n, 3Hhd] VMEM scratch
-      alv  = per-head softmax(qk)v   int8  [j, n, Hhd]  VMEM scratch
-      out  = alv @ Wproj + bias + x  bf16  [j, n, D]
-
-    vs the qkv-kernel + attention+proj pair this removes the [M, 3D] qkv
-    HBM round trip (66 MB/block at ViT-B batch 32) and a launch; the qkv
-    dot is striped so each stripe's dequant (VPU) hides under the next
-    stripe's dot (MXU). Numerics identical to the chain it replaces.
-
-    Ref order: x, w_qkv, q_scale, [q_bias], ln_g, ln_b, w_proj, p_scale,
-    [p_bias], [smem act_d, act_t, out_d, out_t], o,
-    qkv_scratch, alv_scratch[, unpack scratches]."""
-    it = iter(rest)
-    wq_ref = next(it)
-    qs_ref = next(it)
-    qb_ref = next(it) if has_qb else None
-    ln_g_ref = next(it)
-    ln_b_ref = next(it)
-    wp_ref = next(it)
-    ps_ref = next(it)
-    pb_ref = next(it) if has_pb else None
-    act_d, act_t = next(it), next(it)
-    out_d, out_t = next(it), next(it)
-    o_ref = next(it)
-    qkv_ref = next(it)
-    alv_ref = next(it)
-    wq_lo = wq_hi = wp_lo = wp_hi = None
-    if fmt == "int4":
-        wq_lo, wq_hi = next(it), next(it)
-        wp_lo, wp_hi = next(it), next(it)
-
-        @pl.when(pl.program_id(0) == 0)
-        def _unpack():
-            pq = wq_ref[:].astype(jnp.int32)
-            wq_lo[:] = ((pq << 28) >> 28).astype(jnp.int8)
-            wq_hi[:] = (pq >> 4).astype(jnp.int8)
-            pp = wp_ref[:].astype(jnp.int32)
-            wp_lo[:] = ((pp << 28) >> 28).astype(jnp.int8)
-            wp_hi[:] = (pp >> 4).astype(jnp.int8)
-
-    n = x_ref.shape[1]
-    d_model = x_ref.shape[2]
-    # the qkv scratch dtype follows the caller's float_dtype (ADVICE r3
-    # #2: a hard-coded bf16 scratch silently degraded the f32 strict-
-    # parity route); nk's sublane rounding must match it for bit-parity
-    # with the chain, which sizes nk off the qkv tensor's real dtype
-    nk = _n_keys(n, n_valid, qkv_ref.dtype.itemsize)
-    hdim = heads * head_dim
-    three = 3 * hdim
-    jn = j_imgs * n
-
-    from .fused import _layernorm_f32, _quantize_f32 as _qf32
-
-    x2 = x_ref[:].reshape(jn, d_model)
-    xx = _layernorm_f32(x2, ln_g_ref[:], ln_b_ref[:], ln_eps,
-                        k_real=d_model)
-    lv = _qf32(xx, act_d[0], act_t[0], act_top, act_pow, folded=act_folded)
-
-    dn = (((1,), (0,)), ((), ()))
-    d_half = d_model // 2
-    sub = three // qkv_stripes
-
-    def qdot(cols):
-        if fmt == "int4":
-            a = jax.lax.dot_general(lv[:, :d_half], wq_lo[:, cols],
-                                    dimension_numbers=dn,
-                                    preferred_element_type=jnp.int32)
-            return a + jax.lax.dot_general(lv[:, d_half:], wq_hi[:, cols],
-                                           dimension_numbers=dn,
-                                           preferred_element_type=jnp.int32)
-        return jax.lax.dot_general(lv, wq_ref[:, cols],
-                                   dimension_numbers=dn,
-                                   preferred_element_type=jnp.int32)
-
-    cols = [slice(s * sub, (s + 1) * sub) for s in range(qkv_stripes)]
-    accs = {0: qdot(cols[0])}
-    for s in range(qkv_stripes):
-        if s + 1 < qkv_stripes:
-            accs[s + 1] = qdot(cols[s + 1])
-        y = accs.pop(s).astype(jnp.float32) * qs_ref[:, cols[s]]
-        if has_qb:
-            y = y + qb_ref[:, cols[s]]
-        qkv_ref[:, cols[s]] = y.reshape(jn, sub).astype(qkv_ref.dtype)
-
-    col = None
-    if n_valid < nk:
-        col = jax.lax.broadcasted_iota(jnp.int32, (n, nk), dimension=1)
-
-    def qkv_h(j, h):
-        x = qkv_ref[j * n:(j + 1) * n]
-        q = x[:, h * head_dim:(h + 1) * head_dim]
-        k = x[:nk, hdim + h * head_dim:hdim + (h + 1) * head_dim]
-        v = x[:nk, 2 * hdim + h * head_dim:2 * hdim + (h + 1) * head_dim]
-        return q, k, v
-
-    tasks = [(j, h) for j in range(j_imgs) for h in range(heads)]
-    q0, k0, v0 = qkv_h(*tasks[0])
-    s_next = _score_one_head(q0, k0, sm_scale, int_attention)
-    v_cur = v0
-    for i, (j, h) in enumerate(tasks):
-        s_cur, v_use = s_next, v_cur
-        if i + 1 < len(tasks):
-            jn_, hn = tasks[i + 1]
-            q1, k1, v_cur = qkv_h(jn_, hn)
-            s_next = _score_one_head(q1, k1, sm_scale, int_attention)
-        o_un, p_sum = _softmax_av(s_cur, v_use, col, n_valid, int_attention)
-        if not out_pow:
-            lvh = jnp.clip(jnp.round(o_un * (1.0 / (p_sum * out_d[0]))),
-                           -float(out_top), float(out_top))
-            alv_ref[j, :, h * head_dim:(h + 1) * head_dim] = lvh.astype(
-                jnp.int8)
-        else:
-            alv_ref[j, :, h * head_dim:(h + 1) * head_dim] = _quantize_f32(
-                o_un / p_sum, out_d[0], out_t[0], out_top, out_pow)
-
-    k_half = hdim // 2
-    for j in range(j_imgs):
-        alv = alv_ref[j]
-        if fmt == "int4":
-            acc = jax.lax.dot_general(alv[:, :k_half], wp_lo[:],
-                                      dimension_numbers=dn,
-                                      preferred_element_type=jnp.int32)
-            acc += jax.lax.dot_general(alv[:, k_half:], wp_hi[:],
-                                       dimension_numbers=dn,
-                                       preferred_element_type=jnp.int32)
-        else:
-            acc = jax.lax.dot_general(alv, wp_ref[:], dimension_numbers=dn,
-                                      preferred_element_type=jnp.int32)
-        out = acc.astype(jnp.float32) * ps_ref[:]
-        if has_pb:
-            out = out + pb_ref[:]
-        o_ref[j] = (out + x_ref[j].astype(jnp.float32)).astype(o_ref.dtype)
-
-
-def attention_block_fits(n_pad: int, d_model: int, heads: int,
-                         head_dim: int, fmt: str = "int8",
-                         j_imgs: int = 2, qkv_itemsize: int = 2) -> bool:
-    """Conservative VMEM estimate for :func:`attention_block` at these
-    shapes. ViT-B/L fit comfortably; ViT-H (d=1280, 288 token rows) lands
-    ~17 MB against the 16 MB scoped limit and must use the
-    qkv-kernel + attention_qkv_proj chain instead (measured OOM —
-    docs/PERFORMANCE.md model-family notes). ``qkv_itemsize``: bytes per
-    element of the qkv scratch (follows the caller's float_dtype)."""
-    hdim = heads * head_dim
-    three = 3 * hdim
-    wf = 1.5 if fmt == "int4" else 1  # packed + unpack scratch
-    jn = j_imgs * n_pad
-    bytes_est = (
-        (d_model * three + hdim * d_model) * wf   # resident weights
-        + jn * three * qkv_itemsize               # qkv scratch
-        + jn * hdim                               # alv int8 scratch
-        + 2 * (jn * d_model * 2) * 2              # x/out double-buffered
-        + jn * d_model * 4                        # f32 LN/dequant stack
-        + n_pad * n_pad * 4 * 2                   # score matrices
-    )
-    return bytes_est <= 14 * 2**20
-
-
-def attention_block(*args, **kw):
-    """Public entry for the whole-attention-branch kernel (see
-    :func:`_attention_block`); top levels must be positive static ints."""
-    for k in ("act_top", "out_top"):
-        v = kw.get(k)
-        if v is not None and not isinstance(v, int):
-            kw[k] = int(v)
-        if not (kw.get(k) or 0) >= 1:
-            raise ValueError(f"attention_block: positive {k} required")
-    return _attention_block(*args, **kw)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("heads", "sm_scale", "n_valid", "act_top", "act_pow",
-                     "out_top", "out_pow", "out_dtype", "int_attention",
-                     "fmt", "ln_eps", "qkv_stripes", "interpret"),
-)
-def _attention_block(
-    x: jax.Array,
-    w_qkv: jax.Array, qkv_scale, qkv_bias,
-    w_proj: jax.Array, proj_scale, proj_bias,
-    *,
-    ln_scale, ln_bias, ln_eps: float = 1e-6,
-    heads: int,
-    sm_scale: float,
-    n_valid: int | None = None,
-    act_d=None, act_t=None, act_top=None, act_pow: bool = False,
-    out_d=None, out_t=None, out_top=None, out_pow: bool = False,
-    fmt: str = "int8",
-    out_dtype=jnp.bfloat16,
-    int_attention: bool = False,
-    qkv_stripes: int | None = None,
-    interpret: bool = False,
-) -> jax.Array:
-    """x + proj(attn(qkv(quant(LN(x))))) in ONE kernel (see
-    :func:`_attn_block_kernel`). x: [B, N, D]; w_qkv: [D, 3*H*hd];
-    w_proj: [H*hd, D] (int8 levels or packed int4). act_*: the qkv
-    layer's input quantizer; out_*: the proj layer's input quantizer
-    (applied to the attention output). Returns [B, N, D]."""
-    b, n, d_model = x.shape
-    three = w_qkv.shape[1]
-    head_dim = three // (3 * heads)
-    hdim = heads * head_dim
-    if n_valid is None:
-        n_valid = n
-
-    qkv_scale = jnp.broadcast_to(jnp.asarray(qkv_scale, jnp.float32),
-                                 (three,))
-    proj_scale = jnp.broadcast_to(jnp.asarray(proj_scale, jnp.float32),
-                                  (d_model,))
-    ln_scale = jnp.asarray(ln_scale, jnp.float32)
-    ln_bias = jnp.asarray(ln_bias, jnp.float32)
-    act_folded = not act_pow
-    if act_folded:
-        inv_d = 1.0 / jnp.asarray(act_d, jnp.float32)
-        ln_scale = ln_scale * inv_d
-        ln_bias = ln_bias * inv_d
-    has_qb = qkv_bias is not None
-    has_pb = proj_bias is not None
-
-    j_imgs = 2 if b % 2 == 0 else 1
-    if j_imgs == 2 and not attention_block_fits(
-            n, d_model, heads, head_dim, fmt, j_imgs=2,
-            qkv_itemsize=jnp.dtype(out_dtype).itemsize):
-        # ViT-H-class: two images per program overflow VMEM (measured
-        # 16.8 MB vs the 16 MB scoped limit); one image fits — shorter
-        # task loop but the whole-branch fusion still beats the chain's
-        # qkv HBM round trip (tools/exp_vith.py)
-        j_imgs = 1
-    qkv_stripes = qkv_stripes or (3 if three % (3 * 128) == 0 else 1)
-    if three % qkv_stripes:
-        # a non-dividing stripe count would leave the trailing
-        # three % stripes columns of the qkv scratch unwritten and feed
-        # stale VMEM into attention (ADVICE r3 #3)
-        raise ValueError(
-            f"qkv_stripes={qkv_stripes} does not divide qkv width {three}")
-    vm = lambda shape, idx: pl.BlockSpec(shape, idx,
-                                         memory_space=pltpu.VMEM)
-    in_specs = [
-        vm((j_imgs, n, d_model), lambda i: (i, 0, 0)),
-        vm(((d_model // 2) if fmt == "int4" else d_model, three),
-           lambda i: (0, 0)),
-        vm((1, three), lambda i: (0, 0)),
-    ]
-    operands = [x, w_qkv, qkv_scale[None, :]]
-    if has_qb:
-        in_specs.append(vm((1, three), lambda i: (0, 0)))
-        operands.append(jnp.asarray(qkv_bias, jnp.float32)[None, :])
-    in_specs += [vm((1, d_model), lambda i: (0, 0)),
-                 vm((1, d_model), lambda i: (0, 0))]
-    operands += [ln_scale[None, :], ln_bias[None, :]]
-    in_specs.append(vm(((hdim // 2) if fmt == "int4" else hdim, d_model),
-                       lambda i: (0, 0)))
-    operands.append(w_proj)
-    in_specs.append(vm((1, d_model), lambda i: (0, 0)))
-    operands.append(proj_scale[None, :])
-    if has_pb:
-        in_specs.append(vm((1, d_model), lambda i: (0, 0)))
-        operands.append(jnp.asarray(proj_bias, jnp.float32)[None, :])
-    smem = lambda: pl.BlockSpec(memory_space=pltpu.SMEM)
-    in_specs += [smem()] * 4
-    operands += [
-        jnp.asarray(act_d, jnp.float32).reshape(1),
-        jnp.asarray(act_t if act_t is not None else 1.0,
-                    jnp.float32).reshape(1),
-        jnp.asarray(out_d, jnp.float32).reshape(1),
-        jnp.asarray(out_t if out_t is not None else 1.0,
-                    jnp.float32).reshape(1),
-    ]
-
-    # qkv scratch in the caller's float_dtype: the chain this kernel
-    # replaces emits qkv in float_dtype, so the f32 strict-parity
-    # configuration must not silently round through bf16 (ADVICE r3 #2)
-    scratch = [pltpu.VMEM((j_imgs * n, three), jnp.dtype(out_dtype)),
-               pltpu.VMEM((j_imgs, n, hdim), jnp.int8)]
-    if fmt == "int4":
-        scratch += [pltpu.VMEM((d_model // 2, three), jnp.int8),
-                    pltpu.VMEM((d_model // 2, three), jnp.int8),
-                    pltpu.VMEM((hdim // 2, d_model), jnp.int8),
-                    pltpu.VMEM((hdim // 2, d_model), jnp.int8)]
-
-    return pl.pallas_call(
-        functools.partial(
-            _attn_block_kernel, heads=heads, head_dim=head_dim,
-            sm_scale=sm_scale, n_valid=n_valid, out_pow=out_pow,
-            act_pow=act_pow, act_folded=act_folded,
-            int_attention=int_attention, act_top=act_top, out_top=out_top,
-            j_imgs=j_imgs, fmt=fmt, has_qb=has_qb, has_pb=has_pb,
-            ln_eps=ln_eps, qkv_stripes=qkv_stripes),
-        grid=(b // j_imgs,),
-        in_specs=in_specs,
-        out_specs=vm((j_imgs, n, d_model), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((b, n, d_model), out_dtype),
-        scratch_shapes=scratch,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b * n * d_model * three
-            + 2 * b * heads * n * n * head_dim * 2
-            + 2 * b * n * hdim * d_model,
-            bytes_accessed=b * n * d_model * (x.dtype.itemsize
-                                              + jnp.dtype(out_dtype).itemsize),
-            transcendentals=b * heads * n * n,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        interpret=interpret,
-    )(*operands)
-
-
-def attention_qkv_proj(*args, **kw):
-    """Public entry for the attention+proj fused kernel (see
-    :func:`_attention_qkv_proj`); ``out_top`` must be a positive static
-    int like the other quantize epilogues."""
-    v = kw.get("out_top")
-    if v is not None and not isinstance(v, int):
-        kw["out_top"] = int(v)
-    if not (kw.get("out_top") or 0) >= 1:
-        raise ValueError("attention_qkv_proj: positive out_top required")
-    return _attention_qkv_proj(*args, **kw)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("heads", "sm_scale", "n_valid", "out_top", "out_pow",
-                     "out_dtype", "int_attention", "fmt", "interpret"),
-)
-def _attention_qkv_proj(
-    qkv: jax.Array,
-    w: jax.Array,
-    scale,
-    bias,
-    residual: jax.Array,
-    *,
-    heads: int,
-    sm_scale: float,
-    n_valid: int | None = None,
-    out_d=None, out_t=None, out_top=None, out_pow: bool = False,
-    fmt: str = "int8",
-    out_dtype=jnp.bfloat16,
-    int_attention: bool = False,
-    interpret: bool = False,
-) -> jax.Array:
-    """softmax(qk)v quantized to int8 levels, then the proj matmul +
-    dequant + residual — one kernel. qkv: [B, N, 3*H*hd]; w: [H*hd, D]
-    int8 levels (or packed int4 [H*hd/2, D]); residual: [B, N, D].
-    Returns the new residual stream [B, N, D] (out_dtype)."""
-    b, n, three_hdim = qkv.shape
-    head_dim = three_hdim // (3 * heads)
-    hdim = heads * head_dim
-    if n_valid is None:
-        n_valid = n
-    d_out = w.shape[1]
-    if residual.shape != (b, n, d_out):
-        raise ValueError(f"residual {residual.shape} vs (b, n, {d_out})")
-
-    scale = jnp.broadcast_to(jnp.asarray(scale, jnp.float32), (d_out,))
-    has_bias = bias is not None
-
-    j_imgs = 2 if b % 2 == 0 else 1
-    vm = lambda shape, idx: pl.BlockSpec(shape, idx,
-                                         memory_space=pltpu.VMEM)
-    in_specs = [
-        vm((j_imgs, n, three_hdim), lambda i: (i, 0, 0)),
-        vm(((hdim // 2) if fmt == "int4" else hdim, d_out),
-           lambda i: (0, 0)),
-        vm((1, d_out), lambda i: (0, 0)),
-    ]
-    operands = [qkv, w, scale[None, :]]
-    if has_bias:
-        in_specs.append(vm((1, d_out), lambda i: (0, 0)))
-        operands.append(jnp.asarray(bias, jnp.float32)[None, :])
-    in_specs.append(vm((j_imgs, n, d_out), lambda i: (i, 0, 0)))
-    operands.append(residual)
-    smem = lambda: pl.BlockSpec(memory_space=pltpu.SMEM)
-    in_specs += [smem(), smem()]
-    operands += [jnp.asarray(out_d, jnp.float32).reshape(1),
-                 jnp.asarray(out_t if out_t is not None else 1.0,
-                             jnp.float32).reshape(1)]
-
-    scratch = [pltpu.VMEM((j_imgs, n, hdim), jnp.int8)]
-    if fmt == "int4":
-        scratch += [pltpu.VMEM((hdim // 2, d_out), jnp.int8),
-                    pltpu.VMEM((hdim // 2, d_out), jnp.int8)]
-
-    return pl.pallas_call(
-        functools.partial(
-            _attn_proj_kernel, heads=heads, head_dim=head_dim,
-            sm_scale=sm_scale, n_valid=n_valid, out_pow=out_pow,
-            int_attention=int_attention, out_top=out_top, j_imgs=j_imgs,
-            fmt=fmt, has_bias=has_bias),
-        grid=(b // j_imgs,),
-        in_specs=in_specs,
-        out_specs=vm((j_imgs, n, d_out), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((b, n, d_out), out_dtype),
-        scratch_shapes=scratch,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b * heads * n * n * head_dim * 2
-            + 2 * b * n * hdim * d_out,
-            bytes_accessed=b * n * three_hdim * qkv.dtype.itemsize
-            + b * n * d_out * (residual.dtype.itemsize
-                               + jnp.dtype(out_dtype).itemsize),
-            transcendentals=b * heads * n * n,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        interpret=interpret,
-    )(*operands)
-
-
-def attention_qkv(*args, **kw):
-    """Public entry: ``out_top`` must be a compile-time int (clip bounds
-    must be immediates in Mosaic — ops/fused.py:_fused_kernel note)."""
-    v = kw.get("out_top")
-    if v is not None and not isinstance(v, int):
-        kw["out_top"] = int(v)
-    if kw.get("out_d") is not None and not (kw.get("out_top") or 0) >= 1:
-        # a missing/zero top would silently clip every level to [-0, 0]
-        # and emit all-zero int8 output (ADVICE r2 #1)
-        raise ValueError(
-            "attention_qkv: out_d given but out_top is "
-            f"{kw.get('out_top')!r}; the quantize epilogue needs the "
-            "layer's positive top level (QLayerArtifact.top)")
-    return _attention_qkv(*args, **kw)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("heads", "sm_scale", "n_valid", "out_top", "out_pow",
-                     "out_dtype", "int_attention", "interpret"),
-)
-def _attention_qkv(
-    qkv: jax.Array,
-    *,
-    heads: int,
-    sm_scale: float,
-    n_valid: int | None = None,
-    out_d=None, out_t=None, out_top=None, out_pow: bool = False,
-    out_dtype=jnp.bfloat16,
-    int_attention: bool = False,
-    interpret: bool = False,
-) -> jax.Array:
-    """Multi-head attention straight off the fused-qkv projection output.
-
-    qkv: [B, N, 3*H*hd] float, columns ordered (3, H, hd) as produced by the
-    fused qkv Dense (vit_model.py:129). Returns [B, N, H*hd] — the proj
-    layer's input layout — with no intermediate HBM transpose. With
-    ``out_d/out_t/out_top`` the output is the proj layer's int8 levels.
-
-    ``int_attention``: run the score and AV matmuls as int8 x int8 MXU dots
-    with dynamic per-head scales (softmax stays f32). This changes numerics
-    (the fake-quant reference keeps attention float); expect ~1e-2 relative
-    deviation from the float path.
-    """
-    b, n, three_hdim = qkv.shape
-    head_dim = three_hdim // (3 * heads)
-    quantize = out_d is not None
-    if n_valid is None:
-        n_valid = n
-    out_eltype = jnp.int8 if quantize else out_dtype
-
-    # 2 images per program when the batch allows: longer task loop ->
-    # better MXU/VPU pipeline amortization (tools/exp_attn2.py)
-    j_imgs = 2 if b % 2 == 0 else 1
-    in_specs = [pl.BlockSpec((j_imgs, n, three_hdim), lambda i: (i, 0, 0),
-                             memory_space=pltpu.VMEM)]
-    operands = [qkv]
-    if quantize:
-        smem = lambda: pl.BlockSpec(memory_space=pltpu.SMEM)
-        in_specs += [smem(), smem()]
-        operands += [jnp.asarray(out_d, jnp.float32).reshape(1),
-                     jnp.asarray(out_t, jnp.float32).reshape(1)]
-
-    return pl.pallas_call(
-        functools.partial(
-            _attn_qkv_kernel, heads=heads, head_dim=head_dim,
-            sm_scale=sm_scale, n_valid=n_valid, quantize=quantize,
-            out_pow=out_pow, int_attention=int_attention,
-            out_top=out_top or 0, j_imgs=j_imgs),
-        grid=(b // j_imgs,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((j_imgs, n, heads * head_dim),
-                               lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((b, n, heads * head_dim), out_eltype),
-        # whole-call totals (CostEstimate covers the entire pallas_call, not
-        # one program, so no j_imgs scaling — ADVICE r2 #4 reviewed): the
-        # full batch b appears in every term
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b * heads * n * n * head_dim * 2,
-            bytes_accessed=b * n * three_hdim * qkv.dtype.itemsize
-            + b * n * heads * head_dim * jnp.dtype(out_eltype).itemsize,
-            transcendentals=b * heads * n * n,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",),
-        ),
-        interpret=interpret,
-    )(*operands)
-
-
 def attention_qkv_xla(qkv, *, heads, sm_scale, n_valid=None,
                       out_d=None, out_t=None, out_top=None, out_pow=False,
                       out_dtype=jnp.bfloat16, int_attention=False):
-    """Pure-XLA mirror of :func:`attention_qkv` (same f32 / dynamic-int8
-    semantics, vectorized over (batch, head))."""
+    """Softmax attention over the fused qkv tensor [B, N, 3*H*hd].
+
+    The score and probability dots take qkv's dtype with f32 accumulation;
+    an f32 qkv (the strict-parity configuration) runs them at HIGHEST
+    precision, so a GPU does not round them to TF32. ``sm_scale*log2(e)`` is
+    folded into q so the softmax uses exp2, and the row-sum division runs
+    on the [N, hd] output instead of the [N, N] probabilities (folded into
+    the quantizer's 1/d when ``out_d`` is given). ``int_attention``: score
+    and AV dots on dynamically scaled int8 (per-(batch, head) scales)."""
     b, n, three_hdim = qkv.shape
     head_dim = three_hdim // (3 * heads)
     if n_valid is None:
         n_valid = n
     nk = _n_keys(n, n_valid, qkv.dtype.itemsize)
+    prec = (jax.lax.Precision.HIGHEST if qkv.dtype == jnp.float32
+            else None)
     x = qkv.reshape(b, n, 3, heads, head_dim)
     q, k, v = x[:, :, 0], x[:, :nk, 1], x[:, :nk, 2]  # [B, N|nk, H, hd]
     if int_attention:
@@ -911,7 +66,7 @@ def attention_qkv_xla(qkv, *, heads, sm_scale, n_valid=None,
                    * jnp.transpose(k_s, (0, 2, 1, 3)) * _LOG2E)
     else:
         qs = (q.astype(jnp.float32) * (sm_scale * _LOG2E)).astype(q.dtype)
-        s2 = jnp.einsum("bnhd,bmhd->bhnm", qs, k,
+        s2 = jnp.einsum("bnhd,bmhd->bhnm", qs, k, precision=prec,
                         preferred_element_type=jnp.float32)
     if n_valid < nk:
         col = jnp.arange(nk)
@@ -919,7 +74,12 @@ def attention_qkv_xla(qkv, *, heads, sm_scale, n_valid=None,
     if int_attention:
         p = jnp.exp2(s2 - jnp.max(s2, axis=-1, keepdims=True))
     else:
-        # absolute exp2 with upper clamp — see _softmax_av
+        # Absolute exp2 with a fixed upper clamp instead of the row-max
+        # subtraction: softmax is shift-invariant, so skipping it is exact
+        # whenever s2 < 100 — LayerNorm-bounded ViT scores stay far below —
+        # and at the clamp 2^100 * n_keys * |v|max stays far below the f32
+        # max. An all-underflow row divides by the 1e-30 added to p_sum
+        # below and yields 0 instead of NaN.
         p = jnp.exp2(jnp.minimum(s2, 100.0))
     if int_attention:
         p_lv = jnp.round(p * 127.0).astype(jnp.int8)
@@ -930,7 +90,7 @@ def attention_qkv_xla(qkv, *, heads, sm_scale, n_valid=None,
         p_sum = jnp.sum(p_lv.astype(jnp.float32), axis=-1)
     else:
         pb = p.astype(qkv.dtype)
-        o_un = jnp.einsum("bhnm,bmhd->bnhd", pb, v,
+        o_un = jnp.einsum("bhnm,bmhd->bnhd", pb, v, precision=prec,
                           preferred_element_type=jnp.float32)
         p_sum = jnp.sum(p, axis=-1) + 1e-30
     p_sum = jnp.transpose(p_sum, (0, 2, 1))[..., None]
@@ -940,28 +100,6 @@ def attention_qkv_xla(qkv, *, heads, sm_scale, n_valid=None,
             -jnp.asarray(out_top, jnp.float32), jnp.asarray(out_top, jnp.float32))
         return lv.astype(jnp.int8).reshape(b, n, heads * head_dim)
     o = (o_un / p_sum).reshape(b, n, heads * head_dim)
-    if out_d is not None:
-        return _quantize_f32(o, jnp.asarray(out_d, jnp.float32),
-                             jnp.asarray(out_t, jnp.float32),
-                             jnp.asarray(out_top, jnp.int32), out_pow)
-    return o.astype(out_dtype)
-
-
-def flash_attention_xla(q, k, v, *, sm_scale, n_valid=None,
-                        out_d=None, out_t=None, out_top=None, out_pow=False,
-                        out_dtype=jnp.bfloat16):
-    """Pure-XLA mirror with identical f32 softmax/masking semantics."""
-    b, h, n, hd = q.shape
-    s = jnp.einsum("bhnd,bhmd->bhnm", q, k,
-                   preferred_element_type=jnp.float32) * sm_scale
-    if n_valid is not None and n_valid < n:
-        col = jnp.arange(n)
-        s = jnp.where(col[None, None, None, :] < n_valid, s, -1e30)
-    s = s - jnp.max(s, axis=-1, keepdims=True)
-    p = jnp.exp(s)
-    p = p / jnp.sum(p, axis=-1, keepdims=True)
-    o = jnp.einsum("bhnm,bhmd->bhnd", p.astype(q.dtype), v,
-                   preferred_element_type=jnp.float32)
     if out_d is not None:
         return _quantize_f32(o, jnp.asarray(out_d, jnp.float32),
                              jnp.asarray(out_t, jnp.float32),

@@ -1,51 +1,27 @@
-"""Generation-2 fused Pallas kernels for the INT4/INT8 serving path.
+"""Quantized matmul with fused prologue/epilogue, as plain XLA.
 
-Profiling the v1 path (ops/int4_matmul.py driving serve/vit_int4.py) on a
-real v5e chip showed ~1.2 ms/step of pure data movement (per-call pad/slice,
-qkv transposes, f32 softmax materialization, GELU HBM round trips) on top of
-~1.3 ms of kernel time for a 3.7 ms ViT-B/16 batch-8 step. These kernels
-remove that movement by fusing the float glue into the matmul programs:
-
-- ``fused_quant_matmul``: int4/int8 weight matmul with
+- ``fused_quant_matmul_xla``: int4/int8 weight matmul with
   * prologue  ``None`` (x already int8 levels) | ``'quant'`` (LSFQ activation
-    quantization of float x in VMEM) | ``'ln_quant'`` (LayerNorm, then
-    quantization — the pre-norm ViT block reads the residual stream once);
+    quantization of float x) | ``'ln_quant'`` (LayerNorm, then quantization
+    — the pre-norm ViT block reads the residual stream once);
   * epilogue  dequant ``acc*scale+bias`` always, then optionally
-    ``residual`` add (emits the new residual stream, bf16) or
+    ``residual`` add (emits the new residual stream) or
     ``'quant'``/``'gelu_quant'`` (emits the NEXT layer's int8 levels, so the
     consumer runs prologue-free and inter-layer traffic is int8).
-- one N stripe per kernel (grid is 1-D over M): the activation quantization
-  runs exactly once per input row, and the packed weight is unpacked exactly
-  once into VMEM scratch (all ViT-B weight stripes fit: <=2.4 MB unpacked).
+- ``fused_mlp_xla``: the whole MLP branch as two such calls.
 
-The reference quantizes exactly the Linear/Conv inputs and weights
-(quant_layers.py:575-587); these fusions keep that quantization surface —
-LayerNorm/softmax/GELU/residual stay float — while changing only where the
-math runs. Numerics match the unfused path bit-for-bit: the level
-computation is f32 with the same clip(round(|x|^t/d), top) form (see
-quant/lsfq.py for why clip-round equals the reference's masked min form).
+The elementwise prologue and epilogue are left to XLA's fusion; the int8
+dot accumulates in int32 (``preferred_element_type``). The reference
+quantizes exactly the Linear/Conv inputs and weights (quant_layers.py:575-587);
+LayerNorm/softmax/GELU/residual stay float. The level computation is f32
+with the clip(round(|x|^t/d), top) form (see quant/lsfq.py for why
+clip-round equals the reference's masked min form).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _round_up(a: int, b: int) -> int:
-    return _cdiv(a, b) * b
-
-
-_VMEM_BUDGET = 10 * 2**20  # headroom below the 16 MB scoped limit: Mosaic
-# stacks more f32 temporaries than the analytic estimate (observed ~1.4x)
 
 
 def _quantize_f32(x, d, t, top, act_pow: bool, folded: bool = False):
@@ -57,12 +33,7 @@ def _quantize_f32(x, d, t, top, act_pow: bool, folded: bool = False):
 
     ``folded``: the caller already multiplied 1/d into x's affine producer
     (LN gamma/beta or the dequant scale/bias), so the per-element multiply
-    is skipped — one VPU pass saved per call at ViT serving shapes.
-
-    ``top`` may be a Python number (Pallas kernels MUST pass one: a
-    runtime-scalar clip bound makes Mosaic emit per-op splat code measured
-    +60us on the fc1 kernel at batch 32 — tools/exp_pro2.py — where an
-    immediate is free) or a traced array (fine under XLA).
+    is skipped. ``top`` may be a Python number or a traced array.
     """
     x = x.astype(jnp.float32)
     top_f = (jnp.float32(top) if isinstance(top, (int, float))
@@ -94,42 +65,9 @@ def _layernorm_f32(x, gamma, beta, eps, k_real=None):
     return (x32 - mu) * jax.lax.rsqrt(var + eps) * gamma + beta
 
 
-# odd-polynomial erf: erf(v) ~= v * Q(v^2) on [-3, 3], clamped to +-1
-# outside (erf(3) = 1 - 2.2e-5). |y|-weighted least-squares fit (the GELU
-# epilogue multiplies the erf error by ~|y|/2, so equalizing |y|*err gives
-# the shortest polynomial for a given GELU error): max |GELU err| 4.9e-3,
-# below half an int4/int8 quant step (d/2 >= 1e-2 for any practical learned
-# step size). Division- and exp-free: the GELU epilogue's VPU passes add
-# near-linearly to the MXU time inside the kernel (measured on v5e — see
-# tools/profile_b32.py), so every coefficient costs ~10us/pass at ViT-B
-# batch-32 fc1 shapes; the polynomial is the shortest the budget allows.
-_ERF_COEFS = (
-    1.0820510812e+00, -2.8632930819e-01, 5.0755384214e-02,
-    -4.6024812456e-03, 1.6343068626e-04,
-)
-
-
-def _erf_f32(x):
-    """erf as a clamped odd polynomial (see _ERF_COEFS note).
-
-    Mosaic has no erf primitive; this polynomial keeps the exact-GELU
-    semantics of nn.gelu(approximate=False) to well below one int4/int8
-    quantization step. The fit is CONSTRAINED to poly(3) == 1 exactly, so
-    the input clamp alone bounds the output to [-1, 1] and no output clamp
-    is needed (two VPU ops saved per element). Used by BOTH the Pallas
-    kernel and the XLA mirror so the two paths stay bit-identical.
-    """
-    v = jnp.clip(x, -3.0, 3.0)
-    v2 = v * v
-    acc = jnp.float32(_ERF_COEFS[-1])
-    for c in _ERF_COEFS[-2::-1]:
-        acc = acc * v2 + jnp.float32(c)
-    return acc * v
-
-
 def _gelu_f32(x):
-    # erf GELU — matches jax.nn.gelu(approximate=False) to <=4.9e-3 abs
-    return x * 0.5 * (1.0 + _erf_f32(x * (2.0**-0.5)))
+    # exact (erf) GELU, as nn.gelu(approximate=False)
+    return x * 0.5 * (1.0 + jax.lax.erf(x * (2.0**-0.5)))
 
 
 _SQRT2 = 2.0**0.5
@@ -138,12 +76,12 @@ _SQRT2 = 2.0**0.5
 def _gelu_quant_folded(z, d, top):
     """round(GELU(y)/d) levels from z = y/sqrt(2) in one fused chain.
 
-    The wrapper folds 1/sqrt(2) into the dequant scale/bias so the kernel
+    The caller folds 1/sqrt(2) into the dequant scale/bias so this
     receives z directly; GELU(y)/d = w + w*erf(z) with w = z*sqrt(2)/(2d).
     Saves the y-recovery and the quantizer's 1/d multiply vs
     gelu-then-quantize, and the fma form saves the (1 + e) add.
     """
-    e = _erf_f32(z)
+    e = jax.lax.erf(z)
     c2 = _SQRT2 * 0.5 / d  # scalar
     top_f = (jnp.float32(top) if isinstance(top, (int, float))
              else top.astype(jnp.float32))
@@ -152,953 +90,15 @@ def _gelu_quant_folded(z, d, top):
     return lv.astype(jnp.int8)
 
 
-def _dots_int(lv, w_ref, w_lo_ref, w_hi_ref, *, fmt: str, k_half: int):
-    if fmt == "int4":
-        acc = jax.lax.dot_general(
-            lv[:, :k_half], w_lo_ref[:],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        acc += jax.lax.dot_general(
-            lv[:, k_half:], w_hi_ref[:],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-    else:
-        acc = jax.lax.dot_general(
-            lv, w_ref[:],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-    return acc
-
-
-def _pipeline_splits(np_: int, bm: int, prologue) -> tuple[int, int]:
-    """(row_chunks R, n_stripes S) for intra-kernel MXU/VPU pipelining.
-
-    The prologue (LN+quant) and epilogue (dequant/GELU/quant/residual) are
-    VPU work serialized with the MXU dots inside one program; splitting the
-    output into S lane stripes and the rows into R chunks lets the Mosaic
-    scheduler run stripe s+1's dot while stripe s's epilogue executes (and
-    row chunk r+1's prologue while chunk r's first dot executes). Measured
-    on v5e at ViT-B batch-32 shapes this took the fc1 (GELU-epilogue)
-    kernel from 34% to ~?% of the int8 roofline — see tools/profile_b32.py.
-
-    Stripes stay multiples of 128 lanes (vreg-aligned slices)."""
-    lanes = np_ // 128
-    s = 1
-    for cand in (4, 3, 2):
-        if lanes % cand == 0 and np_ // cand >= 256:
-            s = cand
-            break
-    # Row-splitting re-measured SLOWER once clip bounds became immediates
-    # (fc1 batch-32: R1/S4 215us vs R2/S4 222us, tools/exp_prod.py) — the
-    # prologue overlaps the first stripe's dot well enough without it.
-    return 1, s
-
-
-def _fused_kernel(*refs, fmt: str, k_half: int, k_real: int, prologue,
-                  epilogue, act_pow: bool, out_pow: bool, ln_eps: float,
-                  has_bias: bool, act_top: int = 0, out_top: int = 0,
-                  row_chunks: int = 1, n_stripes: int = 1,
-                  act_folded: bool = False, out_folded: bool = False):
-    """Ref order: x, w, scale, [bias], [ln_g, ln_b], [residual],
-    [smem scalars: act_d, act_t][, out_d, out_t], o, [w_lo, w_hi].
-
-    ``act_top``/``out_top`` are COMPILE-TIME ints: clip bounds must be
-    immediates — a runtime-scalar clip costs ~60us/call at fc1 batch-32
-    shapes (Mosaic re-splats the bound per vector op; tools/exp_pro2.py)."""
-    it = iter(refs)
-    x_ref = next(it)
-    w_ref = next(it)
-    scale_ref = next(it)
-    bias_ref = next(it) if has_bias else None
-    ln_g_ref = ln_b_ref = None
-    if prologue == "ln_quant":
-        ln_g_ref = next(it)
-        ln_b_ref = next(it)
-    res_ref = next(it) if epilogue == "residual" else None
-    act_d = act_t = None
-    if prologue in ("quant", "ln_quant", "gelu_quant"):
-        act_d, act_t = next(it), next(it)
-    out_d = out_t = None
-    if epilogue in ("quant", "gelu_quant"):
-        out_d, out_t = next(it), next(it)
-    o_ref = next(it)
-    w_lo_ref = w_hi_ref = None
-    if fmt == "int4":
-        w_lo_ref = next(it)
-        w_hi_ref = next(it)
-
-    if fmt == "int4":
-        @pl.when(pl.program_id(0) == 0)
-        def _unpack():
-            # Mosaic lacks int8 vector shifts; sign-extend nibbles via int32.
-            p = w_ref[:].astype(jnp.int32)
-            w_lo_ref[:] = ((p << 28) >> 28).astype(jnp.int8)
-            w_hi_ref[:] = (p >> 4).astype(jnp.int8)
-
-    def make_lv(rows):
-        if prologue is None:
-            return x_ref[rows, :]
-        xx = x_ref[rows, :]
-        if prologue == "gelu_quant":
-            # x carries z = y/sqrt(2) from the producer (which folded
-            # 1/sqrt(2) into its dequant scale/bias); quantize GELU(y) to
-            # this layer's input levels — the fc1->fc2 handoff variant
-            # where fc2's MXU time hides the GELU VPU work
-            return _gelu_quant_folded(xx.astype(jnp.float32), act_d[0],
-                                      act_top)
-        if prologue == "ln_quant":
-            xx = _layernorm_f32(xx, ln_g_ref[:], ln_b_ref[:], ln_eps,
-                                k_real=k_real)
-        return _quantize_f32(xx, act_d[0], act_t[0], act_top, act_pow,
-                             folded=act_folded)
-
-    def dot_stripe(lv, cols):
-        if fmt == "int4":
-            acc = jax.lax.dot_general(
-                lv[:, :k_half], w_lo_ref[:, cols],
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            )
-            acc += jax.lax.dot_general(
-                lv[:, k_half:], w_hi_ref[:, cols],
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            )
-            return acc
-        return jax.lax.dot_general(
-            lv, w_ref[:, cols],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-
-    def finish(acc, rows, cols):
-        out = acc.astype(jnp.float32) * scale_ref[:, cols]
-        if has_bias:
-            out = out + bias_ref[:, cols]
-        if epilogue == "residual":
-            out = out + res_ref[rows, cols].astype(jnp.float32)
-            o_ref[rows, cols] = out.astype(o_ref.dtype)
-        elif epilogue == "gelu_quant" and out_folded:
-            # out holds z = y/sqrt(2) (scale/bias pre-folded by the wrapper)
-            o_ref[rows, cols] = _gelu_quant_folded(out, out_d[0], out_top)
-        elif epilogue in ("quant", "gelu_quant"):
-            if epilogue == "gelu_quant":
-                out = _gelu_f32(out)
-            o_ref[rows, cols] = _quantize_f32(out, out_d[0], out_t[0],
-                                              out_top, out_pow,
-                                              folded=out_folded)
-        else:
-            o_ref[rows, cols] = out.astype(o_ref.dtype)
-
-    bm = x_ref.shape[0]
-    np_ = o_ref.shape[1]
-    r_n, s_n = row_chunks, n_stripes
-    h = bm // r_n
-    sub = np_ // s_n
-    row_sl = [slice(r * h, (r + 1) * h) for r in range(r_n)]
-    col_sl = [slice(s * sub, (s + 1) * sub) for s in range(s_n)]
-
-    # Software pipeline: compute lv chunk 0, issue its first dot (MXU), then
-    # compute lv chunk 1 (VPU) while it runs; in the task loop, stripe i+1's
-    # dot is issued BEFORE stripe i's epilogue so the scheduler overlaps the
-    # epilogue's VPU work with the next dot's MXU work.
-    lvs = [None] * r_n
-    lvs[0] = make_lv(row_sl[0])
-    tasks = [(r, s) for s in range(s_n) for r in range(r_n)]
-    accs: dict = {tasks[0]: dot_stripe(lvs[0], col_sl[0])}
-    for r in range(1, r_n):
-        lvs[r] = make_lv(row_sl[r])
-    for i, (r, s) in enumerate(tasks):
-        if i + 1 < len(tasks):
-            rn, sn = tasks[i + 1]
-            accs[(rn, sn)] = dot_stripe(lvs[rn], col_sl[sn])
-        finish(accs.pop((r, s)), row_sl[r], col_sl[s])
-
-
-# M-tile preference order, measured on v5e at ViT-B serving shapes. The
-# 13*2^k*32 story is SHAPE-DEPENDENT: at small M the round-2 sweep
-# (tools/sweep_fused.py) saw the proj kernel at bm=832/416 run 11-15us vs
-# 6.4-7.1 for 896/448/224, but at the round-5 batch-32 shapes
-# (tools/exp_pad208.py, M=6656 from 208-token padding) bm=832 runs the
-# qkv kernel at 69.0us vs 75.3 at 416 and beats the FLOP-scaled 224-pad
-# numbers outright. Dividing tiles are preferred in order (_pick_bm), so
-# adding 832/416 only affects geometries none of the 7-based tiles
-# divide; a non-dividing tile pads M up and wastes the pad rows.
-_BLOCK_M_CANDIDATES = (896, 832, 576, 448, 416, 288, 224, 128, 64, 32)
-
-
-def _pick_bm(cap: int, fits) -> int:
-    """Largest fitting M tile, PREFERRING tiles that divide ``cap`` (a
-    non-dividing tile pads M up — e.g. 576 on ViT-B's M=7168 wastes 4.5%
-    of rows and measured +0.8 ms/batch when 576 entered the candidate
-    list for ViT-H's 2304-row geometry; dividing-first keeps ViT-B on
-    896 and ViT-H on 576/288 with zero padding)."""
-    for c in _BLOCK_M_CANDIDATES:
-        if c <= cap and cap % c == 0 and fits(c):
-            return c
-    return next((c for c in _BLOCK_M_CANDIDATES if c <= cap and fits(c)),
-                32)
-
-
-def _pick_block_m(m: int, kp: int, n: int, x_bytes: int, out_bytes: int,
-                  fmt: str, extra_bytes: int) -> int:
-    """Largest fast M tile (multiple of 32 rows) fitting the VMEM budget.
-
-    Accounts double buffering of the streamed x/out/residual blocks, the
-    resident weight stripe (+ unpack scratch for int4), AND the f32 stack
-    intermediates Mosaic materializes inside the program (the f32 prologue
-    view of x and the f32 dequant accumulator view of the output)."""
-    w_bytes = kp * n // 2 + kp * n if fmt == "int4" else kp * n
-    cap = _round_up(m, 32)
-
-    def fits(bm: int) -> bool:
-        stream = bm * kp * x_bytes + bm * n * out_bytes + bm * extra_bytes
-        stack = bm * kp * 4 + bm * n * 4
-        return 2 * stream + stack + w_bytes <= _VMEM_BUDGET
-
-    bm = _pick_bm(cap, fits)
-    return bm if cap >= 32 else cap
-
-
-def fused_quant_matmul(*args, **kw):
-    """Public entry: normalizes ``act_top``/``out_top`` to Python ints (they
-    are per-layer compile-time constants — see _fused_kernel) then calls the
-    jitted core. Accepts concrete scalars/0-d arrays for them; a traced
-    value is an error because the clip bound must be an immediate."""
-    for k in ("act_top", "out_top"):
-        v = kw.get(k)
-        if v is not None and not isinstance(v, int):
-            try:
-                kw[k] = int(v)
-            except jax.errors.TracerIntegerConversionError:
-                raise TypeError(
-                    f"{k} must be a static Python int (a per-layer constant"
-                    " baked into the kernel), not a traced value; pass it"
-                    " as static metadata (e.g. QLayerArtifact.top)") from None
-    # a missing/zero top with an active quantizer would silently clip every
-    # level to [-0, 0] and emit all-zero int8 output (ADVICE r2 #1)
-    if (kw.get("prologue", "quant") in ("quant", "ln_quant", "gelu_quant")
-            and kw.get("act_d") is not None
-            and not (kw.get("act_top") or 0) >= 1):
-        raise ValueError(
-            f"fused_quant_matmul: {kw.get('prologue', 'quant')!r} prologue "
-            f"needs a positive act_top, got {kw.get('act_top')!r}")
-    if (kw.get("epilogue") in ("quant", "gelu_quant")
-            and not (kw.get("out_top") or 0) >= 1):
-        raise ValueError(
-            f"fused_quant_matmul: {kw.get('epilogue')!r} epilogue needs a "
-            f"positive out_top, got {kw.get('out_top')!r}")
-    return _fused_quant_matmul(*args, **kw)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("fmt", "prologue", "epilogue", "act_top", "act_pow",
-                     "out_top", "out_pow", "ln_eps", "out_dtype", "block_m",
-                     "interpret"),
-)
-def _fused_quant_matmul(
-    x: jax.Array,
-    w: jax.Array,
-    scale: jax.Array,
-    bias: jax.Array | None = None,
-    *,
-    fmt: str = "int4",
-    prologue: str | None = "quant",
-    act_d=None, act_t=None, act_top=None, act_pow: bool = False,
-    ln_scale=None, ln_bias=None, ln_eps: float = 1e-6,
-    epilogue: str | None = None,
-    residual: jax.Array | None = None,
-    out_d=None, out_t=None, out_top=None, out_pow: bool = False,
-    out_dtype=jnp.bfloat16,
-    block_m: int | None = None,
-    interpret: bool = False,
-) -> jax.Array:
-    """Fused quantized matmul: see module docstring.
-
-    x: [M, K] — float (prologue 'quant'/'ln_quant') or int8 levels
-       (prologue None).
-    w: [K//2, N] packed int4 (fmt='int4') or [K, N] int8 (fmt='int8').
-    scale: scalar or [N] f32 dequant scale (d_w * d_a); bias: [N] f32 or None.
-    prologue 'ln_quant' needs ln_scale/ln_bias ([K] f32).
-    epilogue: None | 'residual' (+residual [M, N]) | 'quant' | 'gelu_quant'
-      (the latter two need out_d/out_t/out_top — the NEXT layer's activation
-      quantizer — and emit int8 levels).
-    M and K must be whole (any value; padded internally only if misaligned);
-    N is processed as one stripe and must fit VMEM (all ViT shapes do).
-    """
-    m, k = x.shape
-    if fmt == "int4":
-        k_w, n = w.shape[0] * 2, w.shape[1]
-        if w.dtype != jnp.int8:
-            raise TypeError("packed int4 weights must be int8-typed")
-    else:
-        k_w, n = w.shape
-    if k != k_w:
-        raise ValueError(f"K mismatch: x {k} vs w {k_w}")
-    if prologue is None and x.dtype != jnp.int8:
-        raise TypeError("prologue=None requires int8 level input")
-    if prologue == "ln_quant" and (ln_scale is None or ln_bias is None):
-        raise ValueError("ln_quant prologue requires ln_scale/ln_bias")
-    if epilogue == "residual" and residual is None:
-        raise ValueError("residual epilogue requires residual array")
-    if epilogue in ("quant", "gelu_quant") and out_d is None:
-        raise ValueError(f"{epilogue} epilogue requires out_d/out_t/out_top")
-    if prologue == "gelu_quant" and act_d is None:
-        raise ValueError("gelu_quant prologue requires act_d/act_top (the "
-                         "consumer layer's input quantizer)")
-
-    scale = jnp.broadcast_to(jnp.asarray(scale, jnp.float32), (n,))
-    has_bias = bias is not None
-    if has_bias:
-        bias = jnp.asarray(bias, jnp.float32)
-
-    # Constant folding (trace-time [N]/[K]-vector ops, saves whole VPU
-    # passes over the [M, N] output / [M, K] input inside the kernel):
-    #  - ln_quant prologue, t==1: 1/act_d folds into LN gamma/beta;
-    #  - quant epilogue, t==1: 1/out_d folds into the dequant scale/bias;
-    #  - gelu_quant epilogue, t==1: 1/sqrt(2) folds into scale/bias so the
-    #    kernel gets z = y/sqrt(2) directly (see _gelu_quant_folded).
-    act_folded = prologue == "ln_quant" and not act_pow
-    if act_folded:
-        inv_d = 1.0 / jnp.asarray(act_d, jnp.float32)
-        ln_scale = jnp.asarray(ln_scale, jnp.float32) * inv_d
-        ln_bias = jnp.asarray(ln_bias, jnp.float32) * inv_d
-    out_folded = epilogue in ("quant", "gelu_quant") and not out_pow
-    if out_folded:
-        f = (1.0 / jnp.asarray(out_d, jnp.float32) if epilogue == "quant"
-             else jnp.float32(2.0**-0.5))
-        scale = scale * f
-        if has_bias:
-            bias = bias * f
-
-    # K alignment: int4 needs each packed half sublane-aligned (K mult of 256)
-    kp = _round_up(k, 256 if fmt == "int4" else 128)
-    np_ = _round_up(n, 128)
-    if kp != k:
-        # zero pad: int8 zero levels / float zeros quantizing to level 0 are
-        # no-op contraction rows; LN statistics divide by the real K (and
-        # zero-padded gamma/beta keep padded lanes at exactly 0).
-        x = jnp.pad(x, ((0, 0), (0, kp - k)))
-    if fmt == "int4" and (kp // 2, np_) != w.shape:
-        from ..quant.packing import unpack_int4, pack_int4
-
-        w_full = unpack_int4(w, axis=0)
-        w_full = jnp.pad(w_full, ((0, kp - k), (0, np_ - n)))
-        w = pack_int4(w_full, axis=0)
-    elif fmt == "int8" and (kp, np_) != w.shape:
-        w = jnp.pad(w, ((0, kp - k), (0, np_ - n)))
-    if np_ != n:
-        scale = jnp.pad(scale, (0, np_ - n))
-        if has_bias:
-            bias = jnp.pad(bias, (0, np_ - n))
-        if residual is not None:
-            residual = jnp.pad(residual, ((0, 0), (0, np_ - n)))
-
-    x_bytes = 1 if prologue is None else x.dtype.itemsize
-    out_int8 = epilogue in ("quant", "gelu_quant")
-    out_eltype = jnp.int8 if out_int8 else out_dtype
-    out_bytes = jnp.dtype(out_eltype).itemsize
-    extra = residual.dtype.itemsize * np_ if residual is not None else 0
-    bm = block_m or _pick_block_m(m, kp, np_, x_bytes, out_bytes, fmt, extra)
-    mp = _round_up(m, bm)
-    if mp != m:
-        x = jnp.pad(x, ((0, mp - m), (0, 0)))
-        if residual is not None:
-            residual = jnp.pad(residual, ((0, mp - m), (0, 0)))
-
-    grid = (mp // bm,)
-    in_specs = [
-        pl.BlockSpec((bm, kp), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec(((kp // 2) if fmt == "int4" else kp, np_),
-                     lambda i: (0, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, np_), lambda i: (0, 0), memory_space=pltpu.VMEM),
-    ]
-    operands = [x, w, scale[None, :]]
-    if has_bias:
-        in_specs.append(pl.BlockSpec((1, np_), lambda i: (0, 0),
-                                     memory_space=pltpu.VMEM))
-        operands.append(bias[None, :])
-    if prologue == "ln_quant":
-        for arr in (ln_scale, ln_bias):
-            arr = jnp.asarray(arr, jnp.float32)
-            if kp != k:
-                arr = jnp.pad(arr, (0, kp - k))
-            in_specs.append(pl.BlockSpec((1, kp), lambda i: (0, 0),
-                                         memory_space=pltpu.VMEM))
-            operands.append(arr[None, :])
-    if epilogue == "residual":
-        in_specs.append(pl.BlockSpec((bm, np_), lambda i: (i, 0),
-                                     memory_space=pltpu.VMEM))
-        operands.append(residual)
-    smem = lambda: pl.BlockSpec(memory_space=pltpu.SMEM)
-    if prologue in ("quant", "ln_quant", "gelu_quant"):
-        in_specs += [smem(), smem()]
-        operands += [jnp.asarray(act_d, jnp.float32).reshape(1),
-                     jnp.asarray(act_t, jnp.float32).reshape(1)]
-    if out_int8:
-        in_specs += [smem(), smem()]
-        operands += [jnp.asarray(out_d, jnp.float32).reshape(1),
-                     jnp.asarray(out_t, jnp.float32).reshape(1)]
-
-    scratch = []
-    w_hbm_bytes = kp * np_ // 2
-    if fmt == "int4":
-        scratch = [pltpu.VMEM((kp // 2, np_), jnp.int8),
-                   pltpu.VMEM((kp // 2, np_), jnp.int8)]
-    else:
-        w_hbm_bytes = kp * np_
-
-    r_n, s_n = _pipeline_splits(np_, bm, prologue)
-    out = pl.pallas_call(
-        functools.partial(
-            _fused_kernel, fmt=fmt, k_half=kp // 2, k_real=k,
-            prologue=prologue, epilogue=epilogue, act_pow=act_pow,
-            out_pow=out_pow, ln_eps=ln_eps, has_bias=has_bias,
-            act_top=act_top or 0, out_top=out_top or 0,
-            row_chunks=r_n, n_stripes=s_n,
-            act_folded=act_folded, out_folded=out_folded),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((bm, np_), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((mp, np_), out_eltype),
-        scratch_shapes=scratch,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * mp * np_ * kp,
-            bytes_accessed=(mp * kp * x_bytes + w_hbm_bytes
-                            + mp * np_ * out_bytes + extra * mp),
-            transcendentals=mp * kp * (2 if act_pow else 0)
-            + (mp * np_ if epilogue == "gelu_quant" else 0),
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        interpret=interpret,
-    )(*operands)
-    if (mp, np_) != (m, n):
-        out = out[:m, :n]
-    return out
-
-
-# ---------------------------------------------------------------------------
-# whole-MLP-block fusion: LN -> quant -> fc1 -> GELU -> quant -> fc2 -> +x
-# ---------------------------------------------------------------------------
-
-
-def _fused_mlp_kernel(*refs, fmt: str, k_half: int, h_half: int, k_real: int,
-                      act_pow: bool, hid_pow: bool, ln_eps: float,
-                      act_top: int, hid_top: int, n_stripes: int,
-                      act_folded: bool, hid_folded: bool):
-    """One transformer-MLP residual branch per program (see fused_mlp).
-
-    Ref order: x, w1, s1, b1, w2, s2, b2, ln_g, ln_b,
-    [smem: act_d, act_t, hid_d, hid_t], o[, w1_lo, w1_hi, w2_lo, w2_hi].
-
-    The hidden tensor lives ONLY in VMEM, one stripe at a time: stripe s's
-    GELU+quant (VPU) overlaps stripe s+1's fc1 dot (MXU), and each stripe's
-    fc2 contribution accumulates into an int32 register block. Per M tile
-    the HBM traffic is x once + out once — the two-kernel path's 2x hidden
-    stream (44 MB/batch-32) and second residual read of x never happen."""
-    it = iter(refs)
-    x_ref = next(it)
-    w1_ref = next(it)
-    s1_ref = next(it)
-    b1_ref = next(it)
-    w2_ref = next(it)
-    s2_ref = next(it)
-    b2_ref = next(it)
-    ln_g_ref = next(it)
-    ln_b_ref = next(it)
-    act_d, act_t = next(it), next(it)
-    hid_d, hid_t = next(it), next(it)
-    o_ref = next(it)
-    w1_lo = w1_hi = w2_lo = w2_hi = None
-    if fmt == "int4":
-        w1_lo, w1_hi = next(it), next(it)
-        w2_lo, w2_hi = next(it), next(it)
-
-        @pl.when(pl.program_id(0) == 0)
-        def _unpack():
-            p1 = w1_ref[:].astype(jnp.int32)
-            w1_lo[:] = ((p1 << 28) >> 28).astype(jnp.int8)
-            w1_hi[:] = (p1 >> 4).astype(jnp.int8)
-            p2 = w2_ref[:].astype(jnp.int32)
-            w2_lo[:] = ((p2 << 28) >> 28).astype(jnp.int8)
-            w2_hi[:] = (p2 >> 4).astype(jnp.int8)
-
-    xx = _layernorm_f32(x_ref[:], ln_g_ref[:], ln_b_ref[:], ln_eps,
-                        k_real=k_real)
-    lv = _quantize_f32(xx, act_d[0], act_t[0], act_top, act_pow,
-                       folded=act_folded)
-
-    hid = (w1_lo if fmt == "int4" else w1_ref).shape[1]
-    sub = hid // n_stripes
-    dn = (((1,), (0,)), ((), ()))
-
-    def dot1(cols):
-        if fmt == "int4":
-            a = jax.lax.dot_general(lv[:, :k_half], w1_lo[:, cols],
-                                    dimension_numbers=dn,
-                                    preferred_element_type=jnp.int32)
-            return a + jax.lax.dot_general(lv[:, k_half:], w1_hi[:, cols],
-                                           dimension_numbers=dn,
-                                           preferred_element_type=jnp.int32)
-        return jax.lax.dot_general(lv, w1_ref[:, cols],
-                                   dimension_numbers=dn,
-                                   preferred_element_type=jnp.int32)
-
-    def hidden_levels(acc1, cols):
-        y = acc1.astype(jnp.float32) * s1_ref[:, cols] + b1_ref[:, cols]
-        if hid_folded:
-            # y holds z = (fc1 out)/sqrt(2): 1/sqrt(2) pre-folded into s1/b1
-            return _gelu_quant_folded(y, hid_d[0], hid_top)
-        return _quantize_f32(_gelu_f32(y), hid_d[0], hid_t[0], hid_top,
-                             hid_pow)
-
-    def dot2(hlv_s, rows):
-        if fmt == "int4":
-            # packing is along the FULL hidden dim: rows [0, H/2) in the
-            # low nibble plane, [H/2, H) in the high plane
-            if rows.stop <= h_half:  # stripe entirely in the low plane
-                return jax.lax.dot_general(
-                    hlv_s, w2_lo[rows, :], dimension_numbers=dn,
-                    preferred_element_type=jnp.int32)
-            if rows.start >= h_half:  # entirely in the high plane
-                hi = slice(rows.start - h_half, rows.stop - h_half)
-                return jax.lax.dot_general(
-                    hlv_s, w2_hi[hi, :], dimension_numbers=dn,
-                    preferred_element_type=jnp.int32)
-            # stripe spans the plane boundary (n_stripes == 1)
-            cut = h_half - rows.start
-            a = jax.lax.dot_general(
-                hlv_s[:, :cut], w2_lo[rows.start:h_half, :],
-                dimension_numbers=dn, preferred_element_type=jnp.int32)
-            return a + jax.lax.dot_general(
-                hlv_s[:, cut:], w2_hi[:rows.stop - h_half, :],
-                dimension_numbers=dn, preferred_element_type=jnp.int32)
-        return jax.lax.dot_general(hlv_s, w2_ref[rows, :],
-                                   dimension_numbers=dn,
-                                   preferred_element_type=jnp.int32)
-
-    cols = [slice(s * sub, (s + 1) * sub) for s in range(n_stripes)]
-    # software pipeline: issue stripe s+1's fc1 dot before stripe s's
-    # GELU+quant so the VPU chain hides under the MXU
-    acc1 = {0: dot1(cols[0])}
-    acc2 = None
-    for s in range(n_stripes):
-        if s + 1 < n_stripes:
-            acc1[s + 1] = dot1(cols[s + 1])
-        hlv_s = hidden_levels(acc1.pop(s), cols[s])
-        c = dot2(hlv_s, cols[s])
-        acc2 = c if acc2 is None else acc2 + c
-
-    out = acc2.astype(jnp.float32) * s2_ref[:] + b2_ref[:]
-    o_ref[:] = (out + x_ref[:].astype(jnp.float32)).astype(o_ref.dtype)
-
-
-def _fused_mlp_chunked_kernel(x_ref, w1_ref, s1_ref, b1_ref, w2_ref, s2_ref,
-                              b2_ref, ln_g_ref, ln_b_ref, act_d, act_t,
-                              hid_d, hid_t, o_ref, lv_ref, acc_ref, *,
-                              k_real: int, act_pow: bool, hid_pow: bool,
-                              ln_eps: float, act_top: int, hid_top: int,
-                              n_stripes: int, act_folded: bool,
-                              hid_folded: bool, n_h: int):
-    """Hidden-CHUNKED MLP block: grid (M tiles x hidden chunks).
-
-    For big-D models (ViT-H: w1+w2 = 13.1 MB int8) both weights cannot
-    stay VMEM-resident next to useful M tiles — the resident-weight kernel
-    degrades to bm=32 (39% of roofline, measured tools/exp_vith.py). Here
-    each grid step (m, h) streams ONE (w1 column-chunk, w2 row-chunk) pair
-    through VMEM (Pallas double-buffers the fetch under the previous
-    chunk's dots), computes that chunk's hidden stripe and accumulates its
-    fc2 contribution into an int32 scratch; the epilogue fires at the last
-    chunk. x is fetched once per M tile (block index unchanged across h),
-    LN+quant runs once per M tile into an int8 scratch. The hidden tensor
-    STILL never touches HBM — same numerics as the resident kernel (int32
-    accumulation order over hidden is chunk-major, identical to its
-    stripe-major order when chunks == stripes sub-divide equally; dequant
-    is per-tensor so order only affects nothing in int32 exact adds).
-
-    int8 only: int4 packing pairs hidden rows (h, h + H/2) per byte, so a
-    contiguous w2 row-chunk mixes nibble planes; big-D int4 callers use
-    the two-kernel chain instead (serve/vit_int4.py routing)."""
-    h = pl.program_id(1)
-
-    @pl.when(h == 0)
-    def _ln_quant_once():
-        xx = _layernorm_f32(x_ref[:], ln_g_ref[:], ln_b_ref[:], ln_eps,
-                            k_real=k_real)
-        lv_ref[:] = _quantize_f32(xx, act_d[0], act_t[0], act_top,
-                                  act_pow, folded=act_folded)
-
-    lv = lv_ref[:]
-    ch = w1_ref.shape[1]
-    sub = ch // n_stripes
-    dn = (((1,), (0,)), ((), ()))
-    cols = [slice(s * sub, (s + 1) * sub) for s in range(n_stripes)]
-
-    def dot1(c):
-        return jax.lax.dot_general(lv, w1_ref[:, c], dimension_numbers=dn,
-                                   preferred_element_type=jnp.int32)
-
-    acc1 = {0: dot1(cols[0])}
-    acc2 = None
-    for s in range(n_stripes):
-        if s + 1 < n_stripes:
-            acc1[s + 1] = dot1(cols[s + 1])
-        y = (acc1.pop(s).astype(jnp.float32) * s1_ref[:, cols[s]]
-             + b1_ref[:, cols[s]])
-        if hid_folded:
-            hlv = _gelu_quant_folded(y, hid_d[0], hid_top)
-        else:
-            hlv = _quantize_f32(_gelu_f32(y), hid_d[0], hid_t[0], hid_top,
-                                hid_pow)
-        c2 = jax.lax.dot_general(hlv, w2_ref[cols[s], :],
-                                 dimension_numbers=dn,
-                                 preferred_element_type=jnp.int32)
-        acc2 = c2 if acc2 is None else acc2 + c2
-
-    @pl.when(h == 0)
-    def _init_acc():
-        acc_ref[:] = acc2
-
-    @pl.when(h > 0)
-    def _accumulate():
-        acc_ref[:] = acc_ref[:] + acc2
-
-    @pl.when(h == n_h - 1)
-    def _epilogue():
-        out = acc_ref[:].astype(jnp.float32) * s2_ref[:] + b2_ref[:]
-        o_ref[:] = (out + x_ref[:].astype(jnp.float32)).astype(o_ref.dtype)
-
-
-def _mlp_auto_stripes(hid: int) -> int:
-    """Default hidden-stripe count of the resident fused_mlp (measured
-    sweep: more stripes shorten the exposed GELU tail — see _fused_mlp)."""
-    return (8 if hid % (8 * 128) == 0 else
-            4 if hid % (4 * 128) == 0 else (2 if hid % 256 == 0 else 1))
-
-
-def _mlp_resident_fits(k: int, hid: int, fmt: str, x_itemsize: int,
-                       out_itemsize: int, n_stripes: int):
-    """VMEM fit predicate of the resident-weight fused_mlp — the ONE copy
-    of the budget/stream/stack formula, shared by the kernel's own tile
-    picker and by :func:`fused_mlp_resident_bm` (routing probe)."""
-    w_bytes = (k * hid + hid * k) * (1.5 if fmt == "int4" else 1)
-    budget = 14 * 2**20
-
-    def fits(bm):
-        stream = 2 * (bm * k * x_itemsize + bm * k * out_itemsize)
-        stack = bm * k * 4 * 2 + bm * (hid // n_stripes) * 4 * 2
-        return stream + stack + w_bytes <= budget
-
-    return fits
-
-
-def fused_mlp_resident_bm(k: int, hid: int, fmt: str = "int8",
-                          x_itemsize: int = 2,
-                          out_itemsize: int = 2) -> int:
-    """The M tile the resident-weight fused_mlp would pick at these dims,
-    unconstrained by M (exposed for routing; uses the SAME fit predicate
-    as :func:`_fused_mlp`). ViT-B/L land at 448-896; ViT-H's 13.1 MB of
-    weights force 32 — at which the kernel measured 39% of roofline vs
-    83% for the two-kernel chain at bm=288 (tools/exp_vith.py), so
-    callers route big-weight MLPs away (serve/vit_int4.py:_vit_block)."""
-    fits = _mlp_resident_fits(k, hid, fmt, x_itemsize, out_itemsize,
-                              _mlp_auto_stripes(hid))
-    return next((c for c in _BLOCK_M_CANDIDATES if fits(c)), 32)
-
-
-def fused_mlp(*args, **kw):
-    """Public entry (top levels must be static ints — see _fused_kernel)."""
-    for k in ("act_top", "hid_top"):
-        v = kw.get(k)
-        if v is not None and not isinstance(v, int):
-            kw[k] = int(v)
-        if not (kw.get(k) or 0) >= 1:
-            raise ValueError(f"fused_mlp: positive {k} required, got "
-                             f"{kw.get(k)!r}")
-    return _fused_mlp(*args, **kw)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("fmt", "act_top", "act_pow", "hid_top", "hid_pow",
-                     "ln_eps", "out_dtype", "block_m", "stripes",
-                     "hid_block", "interpret"),
-)
-def _fused_mlp(
-    x: jax.Array,
-    w1: jax.Array, scale1, bias1,
-    w2: jax.Array, scale2, bias2,
-    *,
-    ln_scale, ln_bias, ln_eps: float = 1e-6,
-    act_d=None, act_t=None, act_top=None, act_pow: bool = False,
-    hid_d=None, hid_t=None, hid_top=None, hid_pow: bool = False,
-    fmt: str = "int8",
-    out_dtype=jnp.bfloat16,
-    block_m: int | None = None,
-    stripes: int | None = None,
-    hid_block: int | None = None,
-    interpret: bool = False,
-) -> jax.Array:
-    """x + fc2(quant(GELU(fc1(quant(LN(x)))))) in ONE kernel.
-
-    x: [M, K] float residual stream. w1: [K, H] / w2: [H, K] int8 level
-    weights (fmt='int8') or packed int4 ([K/2, H] / [H/2, K]).
-    scale/bias: fc1 and fc2 dequant vectors. act_*: fc1's input quantizer;
-    hid_*: fc2's input quantizer (applied to GELU output). Requires K, H
-    lane/sublane-aligned (K mult of 128/256, H mult of n_stripes*128) —
-    true for every ViT family member; callers with odd shapes use the
-    two-kernel path.
-    """
-    m, k = x.shape
-    if fmt == "int4":
-        k1, hid = w1.shape[0] * 2, w1.shape[1]
-        h2, n2 = w2.shape[0] * 2, w2.shape[1]
-    else:
-        k1, hid = w1.shape
-        h2, n2 = w2.shape
-    if k1 != k or h2 != hid or n2 != k:
-        raise ValueError(f"MLP shape mismatch: x[{m},{k}] w1[{k1},{hid}] "
-                         f"w2[{h2},{n2}]")
-    align = 256 if fmt == "int4" else 128
-    if k % align or hid % align:
-        raise ValueError(f"fused_mlp needs {align}-aligned dims, got "
-                         f"K={k}, H={hid}")
-
-    scale1 = jnp.broadcast_to(jnp.asarray(scale1, jnp.float32), (hid,))
-    bias1 = (jnp.zeros((hid,), jnp.float32) if bias1 is None
-             else jnp.asarray(bias1, jnp.float32))
-    scale2 = jnp.broadcast_to(jnp.asarray(scale2, jnp.float32), (k,))
-    bias2 = (jnp.zeros((k,), jnp.float32) if bias2 is None
-             else jnp.asarray(bias2, jnp.float32))
-    ln_scale = jnp.asarray(ln_scale, jnp.float32)
-    ln_bias = jnp.asarray(ln_bias, jnp.float32)
-
-    act_folded = not act_pow
-    if act_folded:
-        inv_d = 1.0 / jnp.asarray(act_d, jnp.float32)
-        ln_scale = ln_scale * inv_d
-        ln_bias = ln_bias * inv_d
-    hid_folded = not hid_pow
-    if hid_folded:
-        scale1 = scale1 * jnp.float32(2.0**-0.5)
-        bias1 = bias1 * jnp.float32(2.0**-0.5)
-
-    # VMEM: both weight stripes resident (+unpack scratch for int4), x/out
-    # double-buffered, ~2 f32 stack blocks of [bm, hid/S] + [bm, k].
-    # Sweep on v5e at ViT-B shapes (bm x stripes, chain-timed): 448x8/12 =
-    # 217us, 448x4 = 220, 224x4..12 = 227-230 — more stripes shorten the
-    # exposed GELU tail, bigger row tiles amortize the LN prologue.
-    n_stripes = stripes or _mlp_auto_stripes(hid)
-    if hid % n_stripes:
-        # a non-dividing stripe count would leave hid % stripes columns of
-        # the hidden activation unwritten -> stale VMEM (ADVICE r3 #3)
-        raise ValueError(
-            f"stripes={n_stripes} does not divide hidden width {hid}")
-    cap = _round_up(m, 32)
-
-    # measured headroom: bm=448 at ViT-B shapes uses ~14 MB and compiles/
-    # runs fine, so the shared fit predicate budgets closer to the 16 MB
-    # scoped limit than the analytic-stack-shy _VMEM_BUDGET (Mosaic fails
-    # loudly at compile time if a config overflows, so the risk is a build
-    # error, never silent corruption)
-    fits = _mlp_resident_fits(k, hid, fmt, x.dtype.itemsize,
-                              jnp.dtype(out_dtype).itemsize, n_stripes)
-    bm = block_m or _pick_bm(cap, fits)
-    w_bytes = (k * hid + hid * k) * (1.5 if fmt == "int4" else 1)  # cost est
-
-    # Big-weight regime (ViT-H-class): both weights resident would force a
-    # tiny M tile (39% of roofline at bm=32, tools/exp_vith.py). Stream
-    # (w1 col-chunk, w2 row-chunk) pairs through a 2-D grid instead —
-    # bit-identical int32 accumulation, hidden still never touches HBM.
-    # int8 only (int4 packing pairs hidden rows across the H/2 boundary).
-    # auto-chunk only when the caller pinned neither block_m nor hid_block:
-    # an explicit small block_m means "measure the RESIDENT kernel at this
-    # tile" (tools/exp_vith.py) and must not silently reroute
-    if hid_block is None and block_m is None and fmt == "int8" and bm < 224:
-        for n_h in (4, 8, 2):
-            hb = hid // n_h
-            if hid % n_h == 0 and hb % 256 == 0:
-                hid_block = hb
-                break
-    if hid_block is not None and hid_block != hid:
-        if fmt != "int8":
-            raise ValueError("hid_block chunking supports fmt='int8' only")
-        if hid % hid_block:
-            raise ValueError(f"hid_block={hid_block} must divide H={hid}")
-        return _fused_mlp_chunked(
-            x, w1, scale1, bias1, w2, scale2, bias2, ln_scale, ln_bias,
-            act_d=act_d, act_t=act_t, hid_d=hid_d, hid_t=hid_t, m=m, k=k,
-            hid=hid, hid_block=hid_block, block_m=block_m,
-            act_pow=act_pow, hid_pow=hid_pow, ln_eps=ln_eps,
-            act_top=act_top, hid_top=hid_top, act_folded=act_folded,
-            hid_folded=hid_folded, out_dtype=out_dtype,
-            interpret=interpret)
-
-    mp = _round_up(m, bm)
-    if mp != m:
-        x = jnp.pad(x, ((0, mp - m), (0, 0)))
-
-    vm = lambda shape: pl.BlockSpec(shape, lambda i: (0,) * len(shape),
-                                    memory_space=pltpu.VMEM)
-    in_specs = [
-        pl.BlockSpec((bm, k), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        vm(((k // 2) if fmt == "int4" else k, hid)),
-        vm((1, hid)), vm((1, hid)),
-        vm(((hid // 2) if fmt == "int4" else hid, k)),
-        vm((1, k)), vm((1, k)),
-        vm((1, k)), vm((1, k)),
-    ]
-    smem = lambda: pl.BlockSpec(memory_space=pltpu.SMEM)
-    in_specs += [smem()] * 4
-    operands = [
-        x, w1, scale1[None, :], bias1[None, :], w2, scale2[None, :],
-        bias2[None, :], ln_scale[None, :], ln_bias[None, :],
-        jnp.asarray(act_d, jnp.float32).reshape(1),
-        jnp.asarray(act_t if act_t is not None else 1.0,
-                    jnp.float32).reshape(1),
-        jnp.asarray(hid_d, jnp.float32).reshape(1),
-        jnp.asarray(hid_t if hid_t is not None else 1.0,
-                    jnp.float32).reshape(1),
-    ]
-    scratch = []
-    if fmt == "int4":
-        scratch = [pltpu.VMEM((k // 2, hid), jnp.int8),
-                   pltpu.VMEM((k // 2, hid), jnp.int8),
-                   pltpu.VMEM((hid // 2, k), jnp.int8),
-                   pltpu.VMEM((hid // 2, k), jnp.int8)]
-
-    out = pl.pallas_call(
-        functools.partial(
-            _fused_mlp_kernel, fmt=fmt, k_half=k // 2, h_half=hid // 2,
-            k_real=k, act_pow=act_pow, hid_pow=hid_pow, ln_eps=ln_eps,
-            act_top=act_top, hid_top=hid_top, n_stripes=n_stripes,
-            act_folded=act_folded, hid_folded=hid_folded),
-        grid=(mp // bm,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((bm, k), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((mp, k), out_dtype),
-        scratch_shapes=scratch,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * mp * hid * k * 2,
-            bytes_accessed=mp * k * (x.dtype.itemsize
-                                     + jnp.dtype(out_dtype).itemsize)
-            + int(w_bytes),
-            transcendentals=mp * hid,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        interpret=interpret,
-    )(*operands)
-    if mp != m:
-        out = out[:m]
-    return out
-
-
-def _fused_mlp_chunked(x, w1, scale1, bias1, w2, scale2, bias2, ln_scale,
-                       ln_bias, *, act_d, act_t, hid_d, hid_t, m, k, hid,
-                       hid_block, block_m, act_pow, hid_pow, ln_eps,
-                       act_top, hid_top, act_folded, hid_folded, out_dtype,
-                       interpret):
-    """Chunked-path pallas_call builder (see _fused_mlp_chunked_kernel).
-    scale1/bias1/scale2/bias2/ln already broadcast + constant-folded by
-    _fused_mlp."""
-    n_h = hid // hid_block
-    n_stripes = (4 if hid_block % 512 == 0 else
-                 2 if hid_block % 256 == 0 else 1)
-
-    # chip sweep at ViT-H shapes (tools/exp_vith.py follow-up): bm=288
-    # hb=1280 compiled and ran best (206 us); the estimate below admits it
-    # (Mosaic's real stack is leaner than the conservative 14 MB rule)
-    budget = 16 * 2**20
-
-    def fits(bm):
-        stream = (2 * bm * k * (x.dtype.itemsize
-                                + jnp.dtype(out_dtype).itemsize)
-                  + 2 * 2 * k * hid_block)      # dbuf (w1c + w2c) int8
-        scratch = bm * k * (1 + 4)              # lv int8 + acc int32
-        stack = bm * (hid_block // n_stripes) * 4 * 2
-        return stream + scratch + stack <= budget
-
-    cap = _round_up(m, 32)
-    bm = block_m or _pick_bm(cap, fits)
-    mp = _round_up(m, bm)
-    if mp != m:
-        x = jnp.pad(x, ((0, mp - m), (0, 0)))
-
-    vmem = pltpu.VMEM
-    in_specs = [
-        pl.BlockSpec((bm, k), lambda i, h: (i, 0), memory_space=vmem),
-        pl.BlockSpec((k, hid_block), lambda i, h: (0, h),
-                     memory_space=vmem),
-        pl.BlockSpec((1, hid_block), lambda i, h: (0, h),
-                     memory_space=vmem),
-        pl.BlockSpec((1, hid_block), lambda i, h: (0, h),
-                     memory_space=vmem),
-        pl.BlockSpec((hid_block, k), lambda i, h: (h, 0),
-                     memory_space=vmem),
-        pl.BlockSpec((1, k), lambda i, h: (0, 0), memory_space=vmem),
-        pl.BlockSpec((1, k), lambda i, h: (0, 0), memory_space=vmem),
-        pl.BlockSpec((1, k), lambda i, h: (0, 0), memory_space=vmem),
-        pl.BlockSpec((1, k), lambda i, h: (0, 0), memory_space=vmem),
-    ]
-    smem = lambda: pl.BlockSpec(memory_space=pltpu.SMEM)
-    in_specs += [smem()] * 4
-    operands = [
-        x, w1, scale1[None, :], bias1[None, :], w2, scale2[None, :],
-        bias2[None, :], ln_scale[None, :], ln_bias[None, :],
-        jnp.asarray(act_d, jnp.float32).reshape(1),
-        jnp.asarray(act_t if act_t is not None else 1.0,
-                    jnp.float32).reshape(1),
-        jnp.asarray(hid_d, jnp.float32).reshape(1),
-        jnp.asarray(hid_t if hid_t is not None else 1.0,
-                    jnp.float32).reshape(1),
-    ]
-    out = pl.pallas_call(
-        functools.partial(
-            _fused_mlp_chunked_kernel, k_real=k, act_pow=act_pow,
-            hid_pow=hid_pow, ln_eps=ln_eps, act_top=act_top,
-            hid_top=hid_top, n_stripes=n_stripes, act_folded=act_folded,
-            hid_folded=hid_folded, n_h=n_h),
-        grid=(mp // bm, n_h),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((bm, k), lambda i, h: (i, 0),
-                               memory_space=vmem),
-        out_shape=jax.ShapeDtypeStruct((mp, k), out_dtype),
-        scratch_shapes=[pltpu.VMEM((bm, k), jnp.int8),
-                        pltpu.VMEM((bm, k), jnp.int32)],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * mp * hid * k * 2,
-            bytes_accessed=mp * k * (x.dtype.itemsize
-                                     + jnp.dtype(out_dtype).itemsize)
-            + (mp // bm) * 2 * k * hid,
-            transcendentals=mp * hid,
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(*operands)
-    if mp != m:
-        out = out[:m]
-    return out
-
-
 def fused_mlp_xla(x, w1, scale1, bias1, w2, scale2, bias2, *,
                   ln_scale, ln_bias, ln_eps=1e-6,
                   act_d=None, act_t=None, act_top=None, act_pow=False,
                   hid_d=None, hid_t=None, hid_top=None, hid_pow=False,
-                  fmt="int8", out_dtype=jnp.bfloat16):
-    """Pure-XLA mirror of :func:`fused_mlp` (identical f32 level math and
-    constant folding, so the paths stay bit-identical)."""
+                  fmt="int8", fmt2=None, out_dtype=jnp.bfloat16):
+    """The MLP branch of a pre-norm block: LN2 -> quant -> fc1 -> GELU ->
+    quant to fc2's levels -> fc2 -> + x. The [M, hidden] tensor between the
+    two matmuls is int8 levels. ``fmt`` is fc1's weight format and ``fmt2``
+    fc2's (default: the same; mixed-precision exports can differ)."""
     hlv = fused_quant_matmul_xla(
         x, w1, scale1, bias1, fmt=fmt, prologue="ln_quant",
         act_d=act_d, act_t=act_t, act_top=act_top, act_pow=act_pow,
@@ -1106,13 +106,8 @@ def fused_mlp_xla(x, w1, scale1, bias1, w2, scale2, bias2, *,
         epilogue="gelu_quant", out_d=hid_d, out_t=hid_t, out_top=hid_top,
         out_pow=hid_pow)
     return fused_quant_matmul_xla(
-        hlv, w2, scale2, bias2, fmt=fmt, prologue=None,
+        hlv, w2, scale2, bias2, fmt=fmt2 or fmt, prologue=None,
         epilogue="residual", residual=x, out_dtype=out_dtype)
-
-
-# ---------------------------------------------------------------------------
-# XLA reference with identical semantics (CPU fallback / parity oracle)
-# ---------------------------------------------------------------------------
 
 
 def fused_quant_matmul_xla(
@@ -1123,9 +118,10 @@ def fused_quant_matmul_xla(
     out_d=None, out_t=None, out_top=None, out_pow=False,
     out_dtype=jnp.bfloat16,
 ):
-    """Pure-XLA mirror of :func:`fused_quant_matmul` (same f32 level math,
-    including the constant-folded prologue/epilogue forms, so the two paths
-    stay bit-identical)."""
+    """int4/int8 weight matmul with the prologue/epilogue described in the
+    module docstring. 1/d is constant-folded into LN gamma/beta (prologue)
+    and into the dequant scale/bias (epilogue) when the quantizer is
+    linear (t == 1)."""
     from .reference import int4_matmul_ref, int8_matmul_ref
 
     scale = jnp.asarray(scale, jnp.float32)
@@ -1147,7 +143,7 @@ def fused_quant_matmul_xla(
     if prologue is None:
         lv = x
     elif prologue == "gelu_quant":
-        # x carries z = y/sqrt(2) from the producer (see the kernel note)
+        # x carries z = y/sqrt(2) from the producer (_gelu_quant_folded)
         lv = _gelu_quant_folded(x.astype(jnp.float32),
                                 jnp.asarray(act_d, jnp.float32),
                                 jnp.asarray(act_top, jnp.int32))

@@ -1,8 +1,6 @@
-"""Pure-XLA reference implementations of the quantized compute ops.
+"""Integer matmul primitives of the quantized compute ops.
 
-These are the semantic oracles for the Pallas kernels (tests assert exact
-integer equality) and the fallback path on non-TPU backends. They also define
-the op contracts:
+They define the op contracts:
 
 - activations enter as *integer levels* (int8) produced by
   :func:`quantized_vit_tpu.quant.lsfq.lsfq_levels` or the DoReFa level

@@ -1,6 +1,6 @@
 """Optimizer layer: GETA / HESSO hybrid sparse+quant training.
 
-TPU-native re-design of only_train_once/optimizer/ (SURVEY.md §2.3): node
+JAX re-design of only_train_once/optimizer/ (SURVEY.md §2.3): node
 groups are declarative metadata, all tensor math is jitted, redundant-group
 membership is mask vectors.
 """

@@ -1,7 +1,7 @@
 """Checkpoint save/load/scan for (params, GETA state).
 
 Reference: only_train_once/optimizer/utils.py:9-37 (torch.save/load + glob
-scan by trailing step number). TPU-native form: a directory of .npz shards
+scan by trailing step number). Form here: a directory of .npz shards
 for array pytrees plus a pickled metadata dict — no framework pickling of
 live modules (compressed models are reconstructed from the manifest instead
 of pickled whole, unlike predict.py:43).

@@ -1,4 +1,4 @@
-"""GETA: joint quantization-aware training + structured pruning, TPU-native.
+"""GETA: joint quantization-aware training + structured pruning, in JAX.
 
 Re-design of the reference optimizer (only_train_once/optimizer/geta.py:22-1287
 and base_hybrid_sparse_optimizer.py / base_optimizer.py) for JAX:

@@ -1,6 +1,6 @@
 """Node-group metadata and tensor<->group-space transforms (flax layouts).
 
-TPU-native counterpart of the reference's transform language
+JAX counterpart of the reference's transform language
 (only_train_once/transform/tensor_transform.py:3-105) and param-group
 payloads (only_train_once/graph/node_group.py:146-176). The reference drags
 a traced ONNX graph around to know how each tensor maps onto its pruning

@@ -1,4 +1,4 @@
-"""HESSO-CRIC: cyclic redundancy identification + correction, TPU-native.
+"""HESSO-CRIC: cyclic redundancy identification + correction, in JAX.
 
 Re-design of the reference optimizer (only_train_once/optimizer/
 hesso_cric.py:7-407). HESSO identifies redundant groups once from a single

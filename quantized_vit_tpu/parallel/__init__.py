@@ -4,17 +4,8 @@ multi-host init and collective health checks."""
 from .audit import (
     CollectiveOp,
     collective_stats,
-    with_wire_dtype,
     parse_collectives,
-    predict_scaling,
     summarize,
-)
-from .aot import (
-    aot_compile,
-    audit_schedule,
-    get_topology,
-    parse_entry_schedule,
-    predict_tp_step,
 )
 from .elastic import (
     elastic_restore,
@@ -56,15 +47,8 @@ from .pipeline import (
 __all__ = [
     "CollectiveOp",
     "collective_stats",
-    "with_wire_dtype",
     "parse_collectives",
-    "predict_scaling",
     "summarize",
-    "aot_compile",
-    "audit_schedule",
-    "get_topology",
-    "parse_entry_schedule",
-    "predict_tp_step",
     "elastic_restore",
     "run_with_elastic_recovery",
     "shrink_mesh",

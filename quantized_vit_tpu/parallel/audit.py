@@ -1,32 +1,22 @@
-"""Collectives audit + analytic ICI/DCN scaling model.
+"""Collectives audit.
 
-The reference has no distributed code at all (SURVEY.md §2.4); the build's
-scaling targets come from BASELINE.md (>=85% images/s efficiency from 1
-chip to N>=2 hosts, tensor-sharded, continuous batching). This module makes
-that claim *quantitative*:
-
-- :func:`collective_stats` parses the post-SPMD-partitioner HLO of a jitted
-  function and returns every collective op with its shape and byte count —
-  the exact communication GSPMD inserted for the chosen shardings. Works on
-  the virtual CPU mesh (the partitioner emits the same collectives for the
-  same mesh shape regardless of backend), so multi-chip communication
-  volume is auditable without multi-chip hardware.
-- :func:`predict_scaling` combines the audited bytes with an analytic
-  ring-collective cost model over published v5e link bandwidths to predict
-  step time and scaling efficiency at 1 chip -> N chips / M hosts.
-
-Hardware model (TPU v5e, from public "How to Scale Your Model" numbers):
-ICI: 2D torus, 45 GB/s per link per direction, 2 links usable per ring
-direction on a pod slice axis. DCN: ~= 25 GB/s per host. A ring all-reduce
-of S bytes over p devices moves 2*S*(p-1)/p bytes through each device's
-ring bandwidth; all-gather/reduce-scatter move S*(p-1)/p.
+The reference has no distributed code at all (SURVEY.md §2.4).
+:func:`collective_stats` parses the post-SPMD-partitioner HLO of a jitted
+function and returns every collective op with its shape and byte count —
+the exact communication GSPMD or a shard_map inserted for the chosen
+shardings. Works on the virtual CPU mesh (the partitioner emits the same
+collectives for the same mesh shape regardless of backend), so multi-device
+communication volume is auditable without the devices. Byte counts are
+full-tensor sizes S: a ring all-reduce of S bytes over p devices moves
+2*S*(p-1)/p bytes through each device; all-gather/reduce-scatter move
+S*(p-1)/p.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import jax
 import numpy as np
@@ -50,8 +40,8 @@ class CollectiveOp:
     kind: str
     dtype: str
     shape: Tuple[int, ...]
-    bytes: int          # full-tensor size S for the ring model
-    group_size: int = 0  # replica group size (0 = unknown -> caller's n_dev)
+    bytes: int          # full-tensor size S
+    group_size: int = 0  # replica group size (0 = unknown)
 
 
 def collective_stats(fn, *args, static_argnames=None,
@@ -101,28 +91,11 @@ def parse_collectives(hlo_text: str) -> List[CollectiveOp]:
             dtype, 4) if shape else _DTYPE_BYTES.get(dtype, 4)
         group = _replica_group_size(line)
         if kind == "reduce-scatter":
-            # the HLO result is ONE SHARD; the ring model wants the full
-            # reduced tensor S = shard * group
+            # the HLO result is ONE SHARD; report the full reduced
+            # tensor S = shard * group
             nbytes *= max(group, 1)
         out.append(CollectiveOp(kind, dtype, shape, nbytes, group))
     return out
-
-
-def with_wire_dtype(ops: Sequence[CollectiveOp], *, kind: str,
-                    from_dtype: str, to_dtype: str) -> List[CollectiveOp]:
-    """Re-dtype ``kind`` ops audited at ``from_dtype`` to the byte count of
-    ``to_dtype`` — the analytic correction for backend-dependent wire
-    dtypes (VERDICT r4 #8): the virtual-CPU lowering promotes bf16
-    reduce-scatters to f32 (2x bytes on the wire), while the scheduled
-    TPU executable keeps bf16 (verified in the deviceless v5e audit,
-    tools/scaling_report.py). Ops of other kinds/dtypes pass through."""
-    ratio = _DTYPE_BYTES[to_dtype] / _DTYPE_BYTES[from_dtype]
-    return [
-        dataclasses.replace(op, dtype=to_dtype,
-                            bytes=int(op.bytes * ratio))
-        if op.kind == kind and op.dtype == from_dtype else op
-        for op in ops
-    ]
 
 
 def summarize(ops: Sequence[CollectiveOp]) -> Dict[str, Dict[str, float]]:
@@ -132,60 +105,3 @@ def summarize(ops: Sequence[CollectiveOp]) -> Dict[str, Dict[str, float]]:
         s["count"] += 1
         s["bytes"] += op.bytes
     return summary
-
-
-# ---------------------------------------------------------------------------
-# analytic time model
-# ---------------------------------------------------------------------------
-
-#: usable per-direction bandwidth of one v5e ICI link, bytes/s
-V5E_ICI_LINK_BW = 45e9
-#: links per torus axis direction usable by a ring (bidirectional ring = 2)
-V5E_ICI_RING_LINKS = 2
-#: per-host DCN bandwidth, bytes/s (data-center network between hosts)
-V5E_DCN_HOST_BW = 25e9
-#: per-collective launch overhead, seconds (dispatch + barrier)
-COLLECTIVE_LATENCY = 5e-6
-
-
-def ring_time(nbytes: int, n_dev: int, bw: float, kind: str) -> float:
-    """Time for one ring collective of ``nbytes`` (full-tensor size) over
-    ``n_dev`` devices at per-device ring bandwidth ``bw``."""
-    if n_dev <= 1:
-        return 0.0
-    frac = (n_dev - 1) / n_dev
-    mult = 2.0 if kind == "all-reduce" else 1.0
-    return COLLECTIVE_LATENCY + mult * nbytes * frac / bw
-
-
-def predict_scaling(
-    compute_time_s: float,
-    ops: Sequence[CollectiveOp],
-    n_dev: int,
-    *,
-    link_bw: float = V5E_ICI_LINK_BW,
-    ring_links: int = V5E_ICI_RING_LINKS,
-    overlap_fraction: float = 0.0,
-) -> Dict[str, float]:
-    """Predicted step time + scaling efficiency for one sharded step.
-
-    compute_time_s: measured single-chip compute time of the same work
-    (per-device share). ops: audited collectives (full-tensor shapes, as
-    GSPMD emits them). overlap_fraction: fraction of collective time hidden
-    under compute by the latency-hiding scheduler (0 = fully exposed,
-    conservative).
-    """
-    bw = link_bw * ring_links
-    t_comm = sum(
-        ring_time(op.bytes, op.group_size or n_dev, bw, op.kind)
-        for op in ops)
-    exposed = t_comm * (1.0 - overlap_fraction)
-    t_step = compute_time_s + exposed
-    return {
-        "n_dev": n_dev,
-        "t_compute_s": compute_time_s,
-        "t_comm_s": t_comm,
-        "t_comm_exposed_s": exposed,
-        "t_step_s": t_step,
-        "efficiency": compute_time_s / t_step if t_step else 1.0,
-    }

@@ -2,10 +2,10 @@
 
 The reference is strictly single-process (SURVEY.md §5: no
 torch.distributed / NCCL / MPI anywhere), so this subsystem is new work the
-multi-host TPU target requires: process-group bring-up via
+multi-host target requires: process-group bring-up via
 `jax.distributed.initialize`, mesh construction that keeps the
-model/tensor axes on ICI and the data axis on DCN (so pjit's all-reduces
-ride the fast fabric), and collective health checks that detect dead or
+model/tensor axes within a host and the data axis across hosts (so
+pjit's all-reduces ride the fast fabric), and collective health checks that detect dead or
 desynchronized hosts *before* a 30-minute training step hangs on a
 collective.
 

@@ -1,9 +1,8 @@
 """Mesh construction and GSPMD partition rules.
 
 The reference has NO parallelism (single CUDA device, train.py:265 —
-SURVEY.md §2.4); this module is the TPU-native scaling story mandated by
-BASELINE.json: tensor-sharded weights over a device mesh with XLA-inserted
-collectives riding ICI.
+SURVEY.md §2.4); this module is the scaling story mandated by BASELINE.json:
+tensor-sharded weights over a device mesh with XLA-inserted collectives.
 
 Sharding layout (Megatron-style column/row pairing so each block needs one
 all-reduce per residual branch):

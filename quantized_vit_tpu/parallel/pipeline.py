@@ -2,10 +2,10 @@
 
 The reference has no parallelism of any kind (SURVEY.md §2.4: training is
 single-device, train.py:265); pipeline parallelism is one of the
-build-mandated strategies. TPU-native design: the 12 homogeneous ViT blocks
+build-mandated strategies. Design: the 12 homogeneous ViT blocks
 (vit_model.py:202-208) are stacked along a leading stage axis that is
 sharded over a ``pipe`` mesh axis with ``shard_map``; activations flow
-between stages with ``lax.ppermute`` over ICI. The schedule is GPipe: with
+between stages with ``lax.ppermute``. The schedule is GPipe: with
 S stages and M microbatches the loop runs M + S - 1 steps, stage s
 processing microbatch (t - s) at step t (fill/drain bubbles run on zeros).
 
@@ -58,17 +58,6 @@ def gpipe_blocks(
     Returns [n_micro, mb, ...] outputs after all ``depth`` blocks, fully
     replicated (broadcast from the last stage).
     """
-    import inspect
-
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-    sig = inspect.signature(shard_map).parameters
-    # the manual result is not replication-typed (psum-of-where broadcast)
-    nocheck = ({"check_vma": False} if "check_vma" in sig
-               else {"check_rep": False})
-
     n_stages = mesh.shape[axis]
     depth = jax.tree.leaves(stacked_params)[0].shape[0]
     if depth % n_stages:
@@ -103,11 +92,12 @@ def gpipe_blocks(
 
     spec_params = jax.tree.map(lambda _: P(axis), stacked_params)
     other_axes = [a for a in mesh.axis_names if a != axis]
-    return shard_map(
+    # the manual result is not replication-typed (psum-of-where broadcast)
+    return jax.shard_map(
         stage_fn, mesh=mesh,
         in_specs=(spec_params, P()),
         out_specs=P(),
-        **nocheck,
+        check_vma=False,
     )(stacked_params, x_microbatches)
 
 

@@ -2,7 +2,7 @@
 
 The reference checkpoints with single-process ``torch.save``/``torch.load``
 (optimizer/utils.py:9-37, train.py:517-532) and pickles whole compressed
-modules (pruning_compression.py:385). The TPU-native form (SURVEY.md §5
+modules (pruning_compression.py:385). The form here (SURVEY.md §5
 "Checkpoint / resume") is sharded on-disk arrays keyed by logical names —
 each host writes only the shards it owns, and restore places every shard
 directly on its target device without a host-side gather — plus a sidecar

@@ -2,7 +2,6 @@
 
 from .lsfq import (
     lsfq_nonlinear,
-    lsfq_nonlinear_fused,
     lsfq_linear,
     dge,
     lsfq_levels,
@@ -36,7 +35,6 @@ from .packing import pack_int4, unpack_int4
 
 __all__ = [
     "lsfq_nonlinear",
-    "lsfq_nonlinear_fused",
     "lsfq_linear",
     "dge",
     "lsfq_levels",

@@ -1,6 +1,6 @@
 """DoReFa-style STE quantizers used by the UltraNet 4-bit CNN.
 
-TPU-native re-design of the reference's `4-bit quantization/quant_ultra.py`:
+JAX re-design of the reference's `4-bit quantization/quant_ultra.py`:
 
 - :func:`uniform_quantize` — ``round(x * n) / n`` with a straight-through
   gradient (quant_ultra.py:8-27). ``k == 32`` is identity, ``k == 1`` is sign.

@@ -1,8 +1,8 @@
 """Integer export math: weight levels, BN folding, integer inc/bias tables.
 
-TPU-native re-design of `4-bit quantization/quantization.py` — the numpy
+JAX re-design of `4-bit quantization/quantization.py` — the numpy
 export-side re-implementation of the training quantizer. These functions
-produce the integer tensors the Pallas inference kernels and the artifact
+produce the integer tensors the integer inference path and the artifact
 pipeline consume; every formula matches the reference bit-for-bit (verified
 in tests/quant/test_integer.py against the reference semantics).
 

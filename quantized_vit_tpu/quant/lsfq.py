@@ -1,6 +1,6 @@
 """LSFQ learned-scale symmetric quantizers as pure JAX functions.
 
-TPU-native re-design of the reference's autograd quantizers
+JAX re-design of the reference's autograd quantizers
 (reference: QViT_with_GETA/only_train_once/quantization/quant_layers.py:33-300):
 
 - :func:`lsfq_nonlinear` — symmetric quantizer with nonlinear power mapping
@@ -25,8 +25,8 @@ instead.
 Inference-side integer helpers (:func:`lsfq_levels`, :func:`lsfq_dequant`)
 express the same forward as an integer-level grid: because every quantized
 value is an integer multiple of ``d``, ``sum((d_w i_w) * (d_a i_a)) =
-d_w * d_a * sum(i_w i_a)`` holds for any ``t`` — this is what lets the Pallas
-INT kernels run the matmul in int8/int4 with a single fused scale epilogue.
+d_w * d_a * sum(i_w i_a)`` holds for any ``t`` — this is what lets the serving
+path run the matmul in int8/int4 with a single fused scale epilogue.
 """
 
 from __future__ import annotations
@@ -112,69 +112,6 @@ def _nonlinear_bwd(res, g):
 
 
 lsfq_nonlinear.defvjp(_nonlinear_fwd, _nonlinear_bwd)
-
-
-# ---------------------------------------------------------------------------
-# Nonlinear quantizer with a FUSED single-pass backward (Pallas on TPU)
-# ---------------------------------------------------------------------------
-
-
-import functools as _functools
-
-
-@_functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5, 6))
-def lsfq_nonlinear_fused(x, d, q_m, t, clip_lo, clip_hi, q_s=0.0):
-    """:func:`lsfq_nonlinear` with the backward computed in ONE pass.
-
-    Identical forward; the backward runs
-    ``ops.quant_vjp.lsfq_nonlinear_bwd_fused`` on TPU (one read of
-    (x, g) producing grad_x + the three reductions — measured 3x
-    cheaper per QAT step than the XLA chain, tools/exp_train_decomp.py)
-    and falls back to the jnp chain elsewhere or for non-lane-aligned
-    trailing dims. ``clip_lo``/``clip_hi``/``q_s`` are STATIC Python
-    floats (they are QuantConfig constants); gradients w.r.t. them are
-    not produced (the array-clip API :func:`lsfq_nonlinear` returns
-    zeros for them anyway)."""
-    clip_val = jnp.asarray([clip_lo, clip_hi], jnp.result_type(x))
-    y, _ = _nonlinear_fwd(x, d, q_m, t, clip_val, jnp.asarray(q_s))
-    return y
-
-
-def _fused_fwd(x, d, q_m, t, clip_lo, clip_hi, q_s):
-    y = lsfq_nonlinear_fused(x, d, q_m, t, clip_lo, clip_hi, q_s)
-    return y, (x, d, q_m, t)
-
-
-def _fused_bwd(clip_lo, clip_hi, q_s, res, g):
-    x, d, q_m, t = res
-    use_kernel = jax.default_backend() == "tpu"
-    if use_kernel:
-        # ADVICE r4 #4: differentiate on the device the residual actually
-        # lives on — a CPU-committed array on a TPU host must take the jnp
-        # chain, not a TPU pallas_call. Under tracing the placement is
-        # unknown; the default backend is then the correct assumption.
-        try:
-            use_kernel = all(dev.platform == "tpu" for dev in x.devices())
-        except Exception:
-            pass
-    if use_kernel:
-        from ..ops.quant_vjp import lsfq_nonlinear_bwd_fused, quant_bwd_fits
-
-        use_kernel = x.ndim >= 1 and quant_bwd_fits(x.shape[-1])
-    if use_kernel:
-        gx, gd, gqm, gt = lsfq_nonlinear_bwd_fused(
-            x, g, d, q_m, t, clip_lo=clip_lo, clip_hi=clip_hi, q_s=q_s)
-        shape_like = lambda v, p: v.reshape(jnp.shape(p)).astype(
-            jnp.result_type(p))
-        return (gx, shape_like(gd, d), shape_like(gqm, q_m),
-                shape_like(gt, t))
-    clip_val = jnp.asarray([clip_lo, clip_hi], jnp.result_type(x))
-    grads = _nonlinear_bwd(
-        (x, d, q_m, t, clip_val, jnp.asarray(q_s)), g)
-    return grads[:4]
-
-
-lsfq_nonlinear_fused.defvjp(_fused_fwd, _fused_bwd)
 
 
 # ---------------------------------------------------------------------------

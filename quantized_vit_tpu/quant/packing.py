@@ -1,15 +1,14 @@
-"""INT4 packing for TPU kernels.
+"""INT4 packing for the serving artifact.
 
 Replaces the reference's FPGA SIMD bit-packing (`4-bit quantization/
 qnn_mem_process.py:11-24` packs w_bit values LSB-first into `ap_uint` words
-tiled [PE][TILES]). On TPU the natural layout is two int4 nibbles per int8
-byte, packed along the *contraction* dimension in halves:
+tiled [PE][TILES]). Here the layout is two int4 nibbles per int8 byte,
+packed along the *contraction* dimension in halves:
 
     packed[k, n] = (W[k, n] & 0xF) | (W[k + K/2, n] << 4)
 
-so that an in-kernel unpack is two arithmetic shifts and a concat — both
-lane-local VPU ops that produce the original [K, N] row order with no
-cross-lane shuffles:
+so that the unpack is two arithmetic shifts and a concat that produce
+the original [K, N] row order:
 
     low  = (packed << 4) >> 4   # rows 0..K/2-1, sign-extended
     high = packed >> 4          # rows K/2..K-1, sign-extended

@@ -1,15 +1,15 @@
 """Continuous batching for single-image inference requests.
 
 No reference analogue (the reference only has batch eval scripts —
-RESULT_TEST.py); this is BASELINE.md's serving requirement. TPU-specific
-design points:
+RESULT_TEST.py); this is BASELINE.md's serving requirement. Design
+points:
 
 - **Bucketed batch shapes.** XLA compiles one executable per input shape, so
   the scheduler pads each flush to the smallest power-of-two bucket ≤
   ``max_batch``. After warmup every flush hits a cached executable — no
   recompiles mid-serving.
 - **Flush policy.** A flush happens when ``max_batch`` requests are waiting
-  (full MXU tile) or the oldest request has waited ``max_delay_ms``
+  (a full batch) or the oldest request has waited ``max_delay_ms``
   (latency bound). One dispatcher thread owns the device; requests resolve
   through per-request futures.
 - **Host/device overlap.** JAX dispatch is asynchronous: ``forward_fn``
@@ -214,8 +214,7 @@ class MultiHostFrontend:
 
     Data-parallel serving scales by sharding REQUESTS, not tensors: each
     backend owns its replica of the weights and its own
-    :class:`ContinuousBatcher`; no inter-backend collective exists (see
-    docs/SCALING.md §1). This front-end routes each request to the
+    :class:`ContinuousBatcher`; no inter-backend collective exists. This front-end routes each request to the
     least-loaded backend (by ``queue_depth()``), falling back to round
     robin on ties. Backends are anything carrying the batcher duck-type
     (``start/stop/submit/stats/queue_depth``): in-process

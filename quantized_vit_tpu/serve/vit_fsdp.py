@@ -1,13 +1,5 @@
 """FSDP-style weight-gather INT4 serving: memory-sharded, data-parallel.
 
-The round-3 AOT audit (tools/scaling_report.py, docs/SCALING.md "Observed:
-GSPMD weight-gather") found that splitting the batch over BOTH mesh axes
-flips GSPMD into a weight-gather strategy whose predicted efficiency
-(89.2% at TP=2 on v5e) clears BASELINE.md's >=85% tensor-sharded bar —
-but it existed only as an audit observation, on the XLA math path (GSPMD
-cannot partition opaque Mosaic kernels). This module is the IMPLEMENTED,
-explicit version of that mode (VERDICT r3 next-round #1b):
-
 - every block weight is sharded over the 'model' axis along its OUTPUT
   columns (``P(None, 'model')``). Column sharding is deliberate: int4
   nibble packing pairs CONTRACTION rows (k, k + K/2) per byte
@@ -19,20 +11,15 @@ explicit version of that mode (VERDICT r3 next-round #1b):
   compute is pure data parallel on each device's own images;
 - inside shard_map, each block's four weights are all-gathered with a
   ONE-BLOCK LOOKAHEAD: block i+1's gathers are issued before block i's
-  compute consumes its results, so XLA's latency-hiding scheduler can
-  run the gather rings under the Pallas kernels (the audit measured the
-  per-step gather volume at ~30 MB int4 — ~0.6 ms of ICI vs ~6 ms of
-  compute at TP=2, so even partial overlap clears 85%);
-- after the gather each device runs the EXACT single-device fused
-  pipeline (serve/vit_int4.py:_vit_block — attention_block + fused_mlp
-  Pallas kernels), which GSPMD could never partition. That is the whole
-  point of doing the gathers by hand.
+  compute consumes its results, so XLA's scheduler may overlap the gathers
+  (NCCL on GPUs) with the compute;
+- after the gather each device runs the EXACT single-device block
+  (serve/vit_int4.py:_vit_block) on its own rows.
 
-Use this mode when the model does not fit one chip's HBM (per-device
+Use this mode when the model does not fit one card's memory (per-device
 weight memory is total/tp); when it does fit, pure DP replicates weights
-and communicates nothing (docs/SCALING.md section 3) and strictly
-dominates. The reference has no parallelism of any kind (single CUDA
-device, train.py:265 — SURVEY.md §2.4).
+and communicates nothing. The reference has no parallelism of any kind
+(single CUDA device, train.py:265 — SURVEY.md §2.4).
 """
 
 from __future__ import annotations
@@ -45,14 +32,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..models.vit import ViTConfig
-from .vit_int4 import (QLayerArtifact, _embed_tokens, _layernorm, _qmatmul,
-                       _round_up, _vit_block)
-
-try:  # jax >= 0.6 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from ..configs import ViTConfig
+from .vit_int4 import (QLayerArtifact, _embed_tokens, _head, _round_up,
+                       _vit_block)
 
 _SHARDED = ("qkv", "proj", "fc1", "fc2")
 
@@ -129,163 +111,29 @@ def _gather_block(blk):
     return {**blk, **{k: _gather_entry(blk[k]) for k in _SHARDED}}
 
 
-# ---------------------------------------------------------------------------
-# in-kernel RDMA gather mode (VERDICT r4 #2)
-# ---------------------------------------------------------------------------
-
-
-def fsdp_rdma_artifact_specs(art: Dict[str, Any]):
-    """Spec pytree for the RDMA-gather mode: block weights ROW-sharded
-    (``P('model', None)``) — Mosaic's DMA engine slices gather
-    destinations freely on the sublane dim but rejects non-tile-aligned
-    lane slices (ops/ring_gather.py module docstring). Row shards of int8
-    level arrays and packed-int4 byte arrays both concatenate back to the
-    exact original bytes."""
-    specs = fsdp_artifact_specs(art)
-    for b in specs["blocks"]:
-        for k in _SHARDED:
-            b[k] = dataclasses.replace(b[k], w=P("model", None))
-    return specs
-
-
-def prepare_fsdp_rdma_artifact(art: Dict[str, Any], cfg: ViTConfig,
-                               tp: int):
-    """Validate an artifact for tp-way ROW sharding + in-kernel gather:
-    every block weight needs rows % (tp * sublane_tile) == 0 (the gather
-    writes dst[my*R:(my+1)*R] and Mosaic wants tile-aligned sublane
-    offsets) and the MLP compute kernel needs the unpacked-int8 format."""
-    from ..ops.ring_gather import _sublane
-
-    for i, b in enumerate(art["blocks"]):
-        for k in _SHARDED:
-            e = b[k]
-            rows = e.w.shape[0]
-            sub = _sublane(e.w.dtype)
-            if rows % (tp * sub):
-                raise ValueError(
-                    f"block {i} {k}: weight rows {rows} not divisible by "
-                    f"tp*{sub}={tp * sub} — RDMA row sharding needs "
-                    "tile-aligned shard rows")
-        if b["fc1"].fmt != "int8" or b["fc2"].fmt != "int8":
-            raise ValueError(
-                "RDMA-gather mode runs the unpacked-int8 MLP kernel; "
-                "export the artifact with pack_weights=False")
-    return art
-
-
-def shard_fsdp_rdma_artifact(art: Dict[str, Any], mesh: Mesh):
-    specs = fsdp_rdma_artifact_specs(art)
-    return jax.tree.map(
-        lambda a, s: jax.device_put(a, NamedSharding(mesh, s)), art, specs)
-
-
-def _gather_block_rows(blk, tp: int):
-    """XLA row-gather of one block (block 0 bootstrap — exposed once)."""
-    return {**blk, **{
-        k: dataclasses.replace(
-            blk[k], w=jax.lax.all_gather(blk[k].w, "model", axis=0,
-                                         tiled=True))
-        for k in _SHARDED}}
-
-
-def _attn_branch(x2d, cur, *, b, n_pad, n_real, dim, hd, sm_scale,
-                 float_dtype, int_attention, interpret):
-    """The attention residual branch on GATHERED weights — the same
-    routing as serve/vit_int4.py:_vit_block's attention half."""
-    from ..ops import attention_block, attention_qkv, attention_qkv_xla
-    from ..ops.attention import attention_block_fits
-    from .vit_int4 import _qmatmul
-
-    qkv_e, proj_e = cur["qkv"], cur["proj"]
-    heads_i = qkv_e.w.shape[1] // (3 * hd)
-    item = jnp.dtype(float_dtype).itemsize
-    if (not interpret and qkv_e.fmt == proj_e.fmt and b >= 8
-            and (attention_block_fits(n_pad, dim, heads_i, hd, qkv_e.fmt,
-                                      j_imgs=2, qkv_itemsize=item)
-                 or attention_block_fits(n_pad, dim, heads_i, hd,
-                                         qkv_e.fmt, j_imgs=1,
-                                         qkv_itemsize=item))):
-        return attention_block(
-            x2d.reshape(b, n_pad, dim),
-            qkv_e.w, qkv_e.scale, qkv_e.bias,
-            proj_e.w, proj_e.scale, proj_e.bias,
-            ln_scale=cur["norm1"]["scale"], ln_bias=cur["norm1"]["bias"],
-            heads=heads_i, sm_scale=sm_scale, n_valid=n_real,
-            act_d=qkv_e.act["d"], act_t=qkv_e.act["t"],
-            act_top=qkv_e.top, act_pow=qkv_e.act_pow,
-            out_d=proj_e.act["d"], out_t=proj_e.act["t"],
-            out_top=proj_e.top, out_pow=proj_e.act_pow,
-            fmt=proj_e.fmt, out_dtype=float_dtype,
-            int_attention=int_attention,
-        ).reshape(b * n_pad, dim)
-    use_pallas = not interpret
-    qkv = _qmatmul(x2d, qkv_e, use_pallas, float_dtype, prologue="ln_quant",
-                   ln_scale=cur["norm1"]["scale"],
-                   ln_bias=cur["norm1"]["bias"])
-    attn_fn = attention_qkv if use_pallas else attention_qkv_xla
-    alv = attn_fn(
-        qkv.reshape(b, n_pad, 3 * heads_i * hd),
-        heads=heads_i, sm_scale=sm_scale, n_valid=n_real,
-        out_d=proj_e.act["d"], out_t=proj_e.act["t"],
-        out_top=proj_e.top, out_pow=proj_e.act_pow,
-        int_attention=int_attention)
-    return _qmatmul(alv.reshape(b * n_pad, heads_i * hd), proj_e,
-                    use_pallas, float_dtype, prologue=None,
-                    epilogue="residual", residual=x2d)
-
-
-def _vit_block_rdma(x2d, cur, next_blk, *, b, n_pad, n_real, dim, hd,
-                    sm_scale, tp, float_dtype, int_attention, interpret):
-    """One transformer block on gathered weights; the MLP kernel also
-    pulls ``next_blk``'s weight shards over ICI while its stripes run
-    (ops/ring_gather.py:fused_mlp_gather). Returns (x2d, gathered_next —
-    None for the last block)."""
-    from ..ops.ring_gather import fused_mlp_gather
-
-    x2d = _attn_branch(x2d, cur, b=b, n_pad=n_pad, n_real=n_real,
-                       dim=dim, hd=hd, sm_scale=sm_scale,
-                       float_dtype=float_dtype,
-                       int_attention=int_attention, interpret=interpret)
-    fc1_e, fc2_e = cur["fc1"], cur["fc2"]
-    shards = ([next_blk[k].w for k in _SHARDED]
-              if next_blk is not None else [])
-    y, gathered_ws = fused_mlp_gather(
-        x2d, fc1_e.w, fc1_e.scale, fc1_e.bias,
-        fc2_e.w, fc2_e.scale, fc2_e.bias,
-        next_shards=shards, axis_name="model", tp=tp,
-        ln_scale=cur["norm2"]["scale"], ln_bias=cur["norm2"]["bias"],
-        act_d=fc1_e.act["d"], act_t=fc1_e.act["t"], act_top=fc1_e.top,
-        act_pow=fc1_e.act_pow, hid_d=fc2_e.act["d"], hid_t=fc2_e.act["t"],
-        hid_top=fc2_e.top, hid_pow=fc2_e.act_pow, fmt="int8",
-        out_dtype=float_dtype, interpret=interpret)
-    if next_blk is None:
-        return y, None
-    gathered = {**next_blk, **{
-        k: dataclasses.replace(next_blk[k], w=w)
-        for k, w in zip(_SHARDED, gathered_ws)}}
-    return y, gathered
-
-
 @functools.partial(
     jax.jit,
-    static_argnames=("cfg", "mesh", "use_pallas", "float_dtype",
-                     "images_layout", "int_attention"),
+    static_argnames=("cfg", "mesh", "float_dtype", "images_layout",
+                     "int_attention", "input_scale"),
 )
 def vit_int4_forward_fsdp(art, images, cfg: ViTConfig, mesh: Mesh,
-                          use_pallas: bool = True,
                           float_dtype=jnp.bfloat16,
                           images_layout: str = "nhwc",
-                          int_attention: bool = False):
+                          int_attention: bool = False,
+                          input_scale: float | None = None):
     """Weight-gather (FSDP-style) quantized ViT forward (module docstring).
 
     art: artifact validated by :func:`prepare_fsdp_artifact` and placed by
     :func:`shard_fsdp_artifact`. images: [B, H, W, 3] f32 (or
-    host-patchified with images_layout='patches'); B must divide the
-    device count. Returns [B, classes] logits sharded over the batch.
+    host-patchified with images_layout='patches'; integer pixels with
+    ``input_scale``); B must divide the device count. Returns
+    [B, classes] logits sharded over the batch.
 
-    Numerics: identical to :func:`~.vit_int4.vit_int4_forward` — the
-    gathered weights are bit-identical to the originals and the compute
-    is the same per-device pipeline, so parity is exact (tested)."""
+    Numerics: the gathered weights are bit-identical to the originals and
+    each device runs the single-device block on its own rows, so the
+    result equals :func:`~.vit_int4.vit_int4_forward` (exactly on the CPU;
+    on a GPU the library may pick other dot algorithms for the smaller
+    per-device batch)."""
     if "model" not in mesh.axis_names or "data" not in mesh.axis_names:
         raise ValueError("mesh must carry ('data', 'model') axes")
     n_dev = mesh.shape["data"] * mesh.shape["model"]
@@ -294,15 +142,17 @@ def vit_int4_forward_fsdp(art, images, cfg: ViTConfig, mesh: Mesh,
         raise ValueError(f"batch {b} not divisible by device count {n_dev}")
 
     n_real = cfg.num_tokens
-    n_pad = _round_up(n_real, 16)  # 208-token padding (round 5)
+    n_pad = _round_up(n_real, 16)
     hd = cfg.embed_dim // cfg.num_heads
     sm_scale = cfg.qk_scale if cfg.qk_scale is not None else hd**-0.5
 
     def body(art, images_loc):
         b_loc = images_loc.shape[0]
-        x2d, _, dim = _embed_tokens(art, images_loc, cfg, use_pallas,
-                                    float_dtype, images_layout,
-                                    n_align=16)
+        if input_scale is not None:
+            images_loc = (images_loc.astype(jnp.float32)
+                          * jnp.float32(input_scale))
+        x2d, _, dim = _embed_tokens(art, images_loc, cfg, float_dtype,
+                                    images_layout, n_align=16)
 
         blocks = art["blocks"]
         # one-block lookahead: issue block i+1's weight gathers before
@@ -315,92 +165,14 @@ def vit_int4_forward_fsdp(art, images, cfg: ViTConfig, mesh: Mesh,
                 gathered = _gather_block(blocks[i + 1])
             x2d = _vit_block(x2d, cur, b=b_loc, n_pad=n_pad,
                              n_real=n_real, dim=dim, hd=hd,
-                             sm_scale=sm_scale, use_pallas=use_pallas,
-                             float_dtype=float_dtype,
+                             sm_scale=sm_scale, float_dtype=float_dtype,
                              int_attention=int_attention)
 
-        x = x2d.reshape(b_loc, n_pad, dim)[:, n_real - 1]
-        x = _layernorm(x, art["norm"]).astype(jnp.float32)
-        if "pre_logits" in art:
-            x = jnp.tanh(x @ art["pre_logits"]["kernel"]
-                         + art["pre_logits"]["bias"])
-        if "head" in art:
-            x = _qmatmul(x, art["head"], use_pallas, jnp.float32)
-        return x
+        return _head(x2d.reshape(b_loc, n_pad, dim)[:, n_real - 1], art)
 
-    fn = shard_map(
+    fn = jax.shard_map(
         body, mesh=mesh,
         in_specs=(fsdp_artifact_specs(art), P(("data", "model"))),
-        out_specs=P(("data", "model")),
-        check_vma=False,
-    )
-    return fn(art, images)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("cfg", "mesh", "float_dtype", "images_layout",
-                     "int_attention", "interpret"),
-)
-def vit_int4_forward_fsdp_rdma(art, images, cfg: ViTConfig, mesh: Mesh,
-                               float_dtype=jnp.bfloat16,
-                               images_layout: str = "nhwc",
-                               int_attention: bool = False,
-                               interpret=False):
-    """FSDP forward with IN-KERNEL RDMA weight gathers (VERDICT r4 #2).
-
-    Same math as :func:`vit_int4_forward_fsdp`, different communication
-    path: block i+1's four weight shards are pushed over ICI by block i's
-    MLP kernel itself (ops/ring_gather.py:fused_mlp_gather) — the XLA
-    scheduler, which refuses to async-schedule shard_map collectives
-    across Mosaic custom-calls (tools/exp_overlap.py, async pairs 0 in
-    all five flag variants), never sees a collective to serialize. Only
-    block 0's gather is an exposed XLA all-gather.
-
-    art: validated by :func:`prepare_fsdp_rdma_artifact` (ROW-sharded,
-    unpacked-int8) and placed by :func:`shard_fsdp_rdma_artifact`.
-    ``interpret``: pass ``pltpu.InterpretParams()`` for the CPU-simulated
-    multi-device tests (remote DMAs are interpreted)."""
-    if "model" not in mesh.axis_names or "data" not in mesh.axis_names:
-        raise ValueError("mesh must carry ('data', 'model') axes")
-    tp = mesh.shape["model"]
-    n_dev = mesh.shape["data"] * tp
-    b = images.shape[0]
-    if b % n_dev:
-        raise ValueError(f"batch {b} not divisible by device count {n_dev}")
-
-    n_real = cfg.num_tokens
-    n_pad = _round_up(n_real, 16)  # 208-token padding (round 5)
-    hd = cfg.embed_dim // cfg.num_heads
-    sm_scale = cfg.qk_scale if cfg.qk_scale is not None else hd**-0.5
-    use_pallas = not interpret
-
-    def body(art, images_loc):
-        b_loc = images_loc.shape[0]
-        x2d, _, dim = _embed_tokens(art, images_loc, cfg, use_pallas,
-                                    float_dtype, images_layout,
-                                    n_align=16)
-        blocks = art["blocks"]
-        kw = dict(b=b_loc, n_pad=n_pad, n_real=n_real, dim=dim, hd=hd,
-                  sm_scale=sm_scale, tp=tp, float_dtype=float_dtype,
-                  int_attention=int_attention, interpret=interpret)
-        gathered = _gather_block_rows(blocks[0], tp)  # bootstrap, exposed
-        for i in range(len(blocks)):
-            nxt = blocks[i + 1] if i + 1 < len(blocks) else None
-            x2d, gathered = _vit_block_rdma(x2d, gathered, nxt, **kw)
-
-        x = x2d.reshape(b_loc, n_pad, dim)[:, n_real - 1]
-        x = _layernorm(x, art["norm"]).astype(jnp.float32)
-        if "pre_logits" in art:
-            x = jnp.tanh(x @ art["pre_logits"]["kernel"]
-                         + art["pre_logits"]["bias"])
-        if "head" in art:
-            x = _qmatmul(x, art["head"], use_pallas, jnp.float32)
-        return x
-
-    fn = shard_map(
-        body, mesh=mesh,
-        in_specs=(fsdp_rdma_artifact_specs(art), P(("data", "model"))),
         out_specs=P(("data", "model")),
         check_vma=False,
     )

@@ -1,13 +1,13 @@
 """Explicit tensor-parallel INT4 ViT serving with hand-placed collectives.
 
 The GSPMD-sharded path (parallel/partition.py rules over
-serve/vit_int4.py) lets the partitioner infer communication, and the audit
-(tools/scaling_report.py) showed it inferring badly: the fused-qkv column
-shard splits the [q|k|v] layout mid-tensor, so GSPMD reshards around every
-attention (72 all-to-alls + 12 full activation all-gathers per step at
-TP=2, 348 MB total). This module places every collective by hand via
-``jax.shard_map`` — the TPU-native analogue of Megatron-TP with
-sequence(-sharded) LayerNorm (Megatron-SP):
+serve/vit_int4.py) lets the partitioner infer communication, and the
+collectives audit (parallel/audit.py) showed it inferring badly: the
+fused-qkv column shard splits the [q|k|v] layout mid-tensor, so GSPMD
+reshards around every attention (72 all-to-alls + 12 full activation
+all-gathers per step at TP=2). This module places every collective by hand
+via ``jax.shard_map`` — Megatron-TP with sequence(-sharded) LayerNorm
+(Megatron-SP); on GPUs XLA hands the collectives to NCCL:
 
 - the residual stream stays SEQUENCE-SHARDED over the 'model' axis: each
   device owns the rows of its b_loc whole images (LayerNorm, quantization
@@ -32,7 +32,7 @@ but changes numerics materially and is not offered.
 
 The reference has no parallelism of any kind (single CUDA device,
 train.py:265 — SURVEY.md §2.4); this is the build-mandated tensor-sharded
-serving path (BASELINE.md), audited in docs/SCALING.md.
+serving path (BASELINE.md).
 """
 
 from __future__ import annotations
@@ -46,16 +46,11 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..models.vit import ViTConfig
-from ..ops import (attention_qkv, attention_qkv_xla, fused_quant_matmul,
-                   fused_quant_matmul_xla)
+from ..configs import ViTConfig
+from ..ops import attention_qkv_xla
 from ..ops.fused import _layernorm_f32, _quantize_f32
-from .vit_int4 import QLayerArtifact, _embed_tokens, _qmatmul, _round_up
-
-try:  # jax >= 0.6 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from .vit_int4 import (QLayerArtifact, _embed_tokens, _head, _qmatmul,
+                       _round_up)
 
 
 # ---------------------------------------------------------------------------
@@ -219,18 +214,20 @@ def _ln_quant(x, ln, entry: QLayerArtifact, ln_eps: float = 1e-6):
 
 @functools.partial(
     jax.jit,
-    static_argnames=("cfg", "mesh", "use_pallas", "float_dtype",
-                     "comm_dtype", "images_layout"),
+    static_argnames=("cfg", "mesh", "float_dtype", "comm_dtype",
+                     "images_layout", "input_scale"),
 )
 def vit_int4_forward_tp(art, images, cfg: ViTConfig, mesh: Mesh,
-                        use_pallas: bool = True,
                         float_dtype=jnp.bfloat16,
                         comm_dtype=jnp.bfloat16,
-                        images_layout: str = "nhwc"):
+                        images_layout: str = "nhwc",
+                        input_scale: float | None = None):
     """Tensor-parallel quantized ViT forward (see module docstring).
 
     art: TP-prepared artifact (:func:`prepare_tp_artifact`). images:
-    [B, H, W, 3] f32 (or host-patchified with images_layout='patches').
+    [B, H, W, 3] f32 (or host-patchified with images_layout='patches';
+    integer pixels with ``input_scale``, as in
+    :func:`~.vit_int4.vit_int4_forward`).
     mesh: ('data', 'model') Mesh; B must divide dp*tp. Returns [B, classes]
     logits sharded over the batch.
 
@@ -255,16 +252,17 @@ def vit_int4_forward_tp(art, images, cfg: ViTConfig, mesh: Mesh,
         raise ValueError(f"batch {b} not divisible by dp*tp={dp * tp}")
 
     n_real = cfg.num_tokens
-    n_pad = _round_up(n_real, 16)  # 208-token padding (round 5)
+    n_pad = _round_up(n_real, 16)
     hd = cfg.embed_dim // cfg.num_heads
     sm_scale = cfg.qk_scale if cfg.qk_scale is not None else hd**-0.5
-    attn_fn = attention_qkv if use_pallas else attention_qkv_xla
 
     def body(art, images_loc):
         b_loc = images_loc.shape[0]
-        x2d, _, dim = _embed_tokens(art, images_loc, cfg, use_pallas,
-                                    float_dtype, images_layout,
-                                    n_align=16)
+        if input_scale is not None:
+            images_loc = (images_loc.astype(jnp.float32)
+                          * jnp.float32(input_scale))
+        x2d, _, dim = _embed_tokens(art, images_loc, cfg, float_dtype,
+                                    images_layout, n_align=16)
         b_grp = b_loc * tp
 
         for blk in art["blocks"]:
@@ -275,9 +273,9 @@ def vit_int4_forward_tp(art, images, cfg: ViTConfig, mesh: Mesh,
             # -- attention: int8 AG -> column qkv -> local heads -> row RS
             lv = _ln_quant(x2d, blk["norm1"], blk["qkv"])
             lv_all = jax.lax.all_gather(lv, "model", axis=0, tiled=True)
-            qkv = _qmatmul(lv_all, blk["qkv"], use_pallas, float_dtype,
+            qkv = _qmatmul(lv_all, blk["qkv"], float_dtype,
                            prologue=None, epilogue=None)
-            alv = attn_fn(
+            alv = attention_qkv_xla(
                 qkv.reshape(b_grp, n_pad, 3 * heads_loc * hd),
                 heads=heads_loc, sm_scale=sm_scale, n_valid=n_real,
                 out_d=proj_e.act["d"], out_t=proj_e.act["t"],
@@ -285,8 +283,8 @@ def vit_int4_forward_tp(art, images, cfg: ViTConfig, mesh: Mesh,
             )
             part = _qmatmul(
                 alv.reshape(b_grp * n_pad, heads_loc * hd),
-                dataclasses.replace(proj_e, bias=None), use_pallas,
-                jnp.float32, prologue=None, epilogue=None,
+                dataclasses.replace(proj_e, bias=None), jnp.float32,
+                prologue=None, epilogue=None,
             ).astype(comm_dtype)
             part = jax.lax.psum_scatter(part, "model", scatter_dimension=0,
                                         tiled=True)
@@ -297,14 +295,14 @@ def vit_int4_forward_tp(art, images, cfg: ViTConfig, mesh: Mesh,
             lv2 = _ln_quant(x2d, blk["norm2"], blk["fc1"])
             lv2_all = jax.lax.all_gather(lv2, "model", axis=0, tiled=True)
             hlv = _qmatmul(
-                lv2_all, blk["fc1"], use_pallas, float_dtype,
+                lv2_all, blk["fc1"], float_dtype,
                 prologue=None, epilogue="gelu_quant",
                 out_d=fc2_e.act["d"], out_t=fc2_e.act["t"],
                 out_top=fc2_e.top, out_pow=fc2_e.act_pow,
             )
             part2 = _qmatmul(
-                hlv, dataclasses.replace(fc2_e, bias=None), use_pallas,
-                jnp.float32, prologue=None, epilogue=None,
+                hlv, dataclasses.replace(fc2_e, bias=None), jnp.float32,
+                prologue=None, epilogue=None,
             ).astype(comm_dtype)
             part2 = jax.lax.psum_scatter(part2, "model",
                                          scatter_dimension=0, tiled=True)
@@ -312,21 +310,10 @@ def vit_int4_forward_tp(art, images, cfg: ViTConfig, mesh: Mesh,
                    + fc2_e.bias).astype(float_dtype)
 
         # head on OWN images' cls rows (sequence shards hold whole images)
-        x = x2d.reshape(b_loc, n_pad, dim)[:, n_real - 1]
-        x32 = x.astype(jnp.float32)
-        nrm = art["norm"]
-        mu = jnp.mean(x32, axis=-1, keepdims=True)
-        var = jnp.mean(jnp.square(x32 - mu), axis=-1, keepdims=True)
-        x = (x32 - mu) * jax.lax.rsqrt(var + 1e-6) * nrm["scale"] + nrm["bias"]
-        if "pre_logits" in art:
-            x = jnp.tanh(x @ art["pre_logits"]["kernel"]
-                         + art["pre_logits"]["bias"])
-        if "head" in art:
-            x = _qmatmul(x, art["head"], use_pallas, jnp.float32)
-        return x
+        return _head(x2d.reshape(b_loc, n_pad, dim)[:, n_real - 1], art)
 
     art_specs = tp_artifact_specs(art)
-    fn = shard_map(
+    fn = jax.shard_map(
         body, mesh=mesh,
         in_specs=(art_specs, P(("data", "model"))),
         out_specs=P(("data", "model")),

@@ -1,6 +1,6 @@
 """Training utilities: losses, data pipeline, guards, epoch drivers.
 
-TPU-native re-design of `QViT_with_GETA/utils.py` and `my_dataset.py`: the
+JAX re-design of `QViT_with_GETA/utils.py` and `my_dataset.py`: the
 loss math is identical, but the step is a single jitted pure function over
 (params, batch) and the data pipeline feeds statically-shaped numpy batches
 (XLA recompiles on shape change, so the loader pads the trailing batch).

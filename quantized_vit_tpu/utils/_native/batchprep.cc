@@ -49,12 +49,10 @@ void qvt_normalize_u8_to_f32(const uint8_t* src, float* dst,
 }
 
 // NHWC [B, H, W, C] f32 -> patchified [B, (H/P)*(W/P), P*P*C] f32.
-// A pure byte reorder: on TPU the same relayout costs ~220us/batch-32 on
-// device (XLA materializes the patch transpose whether done as a strided
-// conv or an explicit reshape — tools/exp_entry.py), while the host writes
-// these bytes anyway when assembling the batch. Emitting the patch layout
-// from the input pipeline makes the ViT patch embed an ordinary K=P*P*C
-// fused matmul (serve/vit_int4.py images_layout="patches").
+// A pure byte reorder that the host does while assembling the batch, so
+// the device does no patch relayout: emitting the patch layout from the
+// input pipeline makes the ViT patch embed an ordinary K=P*P*C quantized
+// matmul (serve/vit_int4.py images_layout="patches").
 void qvt_patchify_f32(const float* src, float* dst, int64_t b, int64_t h,
                       int64_t w, int64_t c, int64_t p) {
     const int64_t gh = h / p, gw = w / p;

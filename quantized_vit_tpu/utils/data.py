@@ -2,7 +2,7 @@
 
 Re-design of `QViT_with_GETA/my_dataset.py:6-50` (MyDataSet: PIL load, RGB
 check, stack collate) and `utils.py:15-81` (read_split_data folder splitter)
-for TPU feeding: batches are numpy NHWC float32 with a FIXED batch size —
+for jit feeding: batches are numpy NHWC float32 with a FIXED batch size —
 the trailing partial batch is either dropped or padded (padded entries carry
 label -1 and a validity mask) so jit never sees a new shape and never
 recompiles mid-epoch.

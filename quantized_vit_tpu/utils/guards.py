@@ -1,4 +1,4 @@
-"""Numerical guards: the TPU analogue of the reference's NaN forensics.
+"""Numerical guards: the JAX analogue of the reference's NaN forensics.
 
 The reference raises NanInGradientError inside quantizer backward
 (quant_layers.py:10-14, 108-123) and sys.exit(1)s on non-finite loss

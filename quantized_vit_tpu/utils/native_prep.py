@@ -1,7 +1,7 @@
 """ctypes bindings for the C++ batch-prep engine + a prefetching loader.
 
 The reference hides input-pipeline cost behind torch DataLoader worker
-PROCESSES (train.py:278 num_workers). The TPU-native runtime does the same
+PROCESSES (train.py:278 num_workers). This runtime does the same
 work in-process: the uint8 -> normalized-float conversion and batch gather
 run in C++ (OpenMP, per-channel LUTs — utils/_native/batchprep.cc), and
 :class:`PrefetchLoader` overlaps the next batch's host-side preparation
@@ -145,12 +145,10 @@ def gather_rows(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
 
 def patchify_batch_u8(images: np.ndarray, patch: int) -> np.ndarray:
     """uint8 variant of :func:`patchify_batch` (the serving integer-input
-    mode — vit_int4_forward ``input_scale``): same byte reorder, numpy
-    path. The C++ kernel is f32-only; a uint8 batch is 4x smaller so the
-    numpy transpose costs ~2 ms/batch-32 and a second native symbol is
-    not worth it. Exists because the batcher load test measured the
-    host->device transfer as the serving bottleneck over thin links
-    (docs/PERFORMANCE.md 'Serving')."""
+    mode — vit_int4_forward ``input_scale``, 4x fewer host->device bytes
+    than f32): same byte reorder, numpy path. The C++ kernel is f32-only;
+    a uint8 batch is 4x smaller, so a second native symbol is not worth
+    it."""
     images = np.ascontiguousarray(images, np.uint8)
     b, h, w, c = images.shape
     if h % patch or w % patch:
@@ -165,10 +163,9 @@ def patchify_batch(images: np.ndarray, patch: int) -> np.ndarray:
     """NHWC f32 batch -> ViT patch layout [B, (H/P)*(W/P), P*P*C].
 
     A pure host-side byte reorder (the batch assembler writes these bytes
-    anyway); on TPU the equivalent relayout costs ~220us/batch-32 however
-    it is expressed (tools/exp_entry.py), so serving feeds
+    anyway), so the device does no relayout: serving feeds
     ``vit_int4_forward(..., images_layout='patches')`` from here and the
-    patch embed becomes an ordinary K=P*P*C fused matmul.
+    patch embed becomes an ordinary K=P*P*C quantized matmul.
     """
     images = np.ascontiguousarray(images, np.float32)
     b, h, w, c = images.shape

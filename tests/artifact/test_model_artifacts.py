@@ -87,13 +87,13 @@ def test_vit_int4_artifact_roundtrip_forward_parity(tmp_path):
     params = init_quant_params_tree(params, init_bits=4.0)
 
     art = export_vit_int4(cfg, params)
-    logits_before = vit_int4_forward(art, x, cfg, use_pallas=False)
+    logits_before = vit_int4_forward(art, x, cfg)
 
     out = str(tmp_path / "vit_art")
     save_vit_int4_artifact(out, art, cfg)
     art2, cfg2 = load_vit_int4_artifact(out)
     assert cfg2 == cfg
-    logits_after = vit_int4_forward(art2, x, cfg2, use_pallas=False)
+    logits_after = vit_int4_forward(art2, x, cfg2)
     np.testing.assert_allclose(np.asarray(logits_after),
                                np.asarray(logits_before),
                                rtol=1e-5, atol=1e-5)
@@ -114,7 +114,7 @@ def test_vit_int4_artifact_sharded_load(tmp_path, mesh8):
         model.init(jax.random.PRNGKey(0), x[:1])["params"])
     params = init_quant_params_tree(params, init_bits=4.0)
     art = export_vit_int4(cfg, params)
-    want = vit_int4_forward(art, x, cfg, use_pallas=False)
+    want = vit_int4_forward(art, x, cfg)
 
     out = str(tmp_path / "vit_art_sh")
     save_vit_int4_artifact(out, art, cfg)
@@ -126,6 +126,6 @@ def test_vit_int4_artifact_sharded_load(tmp_path, mesh8):
     shard_shape = qkv_w.addressable_shards[0].data.shape
     assert shard_shape[1] == qkv_w.shape[1] // 4, shard_shape
     with mesh8:
-        got = vit_int4_forward(art2, x, cfg2, use_pallas=False)
+        got = vit_int4_forward(art2, x, cfg2)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=1e-4, atol=1e-4)

@@ -100,7 +100,7 @@ def test_export_driver_vit_and_reload(train_run, tmp_path):
 
     x = jnp.asarray(np.random.default_rng(0).standard_normal(
         (2, 16, 16, 3)).astype(np.float32))
-    logits = vit_int4_forward(art, x, cfg, use_pallas=False)
+    logits = vit_int4_forward(art, x, cfg)
     assert logits.shape == (2, 4)
     assert np.isfinite(np.asarray(logits)).all()
 
@@ -213,7 +213,7 @@ def test_serve_cli_mesh_tp_routes_to_audited_shard_map_path(served_artifact):
                    cfg.patch_size ** 2 * 3), jnp.float32),
         NamedSharding(forward.mesh, P(("data", "model"))))
     fn = jax.jit(functools.partial(
-        vit_int4_forward_tp, cfg=cfg, mesh=forward.mesh, use_pallas=False,
+        vit_int4_forward_tp, cfg=cfg, mesh=forward.mesh,
         float_dtype=jnp.bfloat16, images_layout="patches"))
     with forward.mesh:
         ops = collective_stats(fn, forward.artifact, x)
@@ -254,7 +254,7 @@ def test_serve_cli_mesh_fsdp_routes_to_weight_gather_path(served_artifact):
         NamedSharding(forward.mesh, P(("data", "model"))))
     fn = jax.jit(functools.partial(
         vit_int4_forward_fsdp, cfg=cfg, mesh=forward.mesh,
-        use_pallas=False, float_dtype=jnp.bfloat16,
+        float_dtype=jnp.bfloat16,
         images_layout="patches"))
     with forward.mesh:
         ops = collective_stats(fn, forward.artifact, x)

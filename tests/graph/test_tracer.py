@@ -1,4 +1,4 @@
-"""jaxpr tracer + pattern search (the TPU-native Graph.search / GEParser,
+"""jaxpr tracer + pattern search (the JAX Graph.search / GEParser,
 graph/graph.py:664-673, transform/ge.py:9-170) and node-group validation."""
 
 import numpy as np

@@ -4,9 +4,8 @@ def test_matmul_dtype_mixed_precision_mode():
     """QuantConfig.matmul_dtype='bfloat16' (round 5): dots run in bf16
     with f32 accumulation; quantizer params/grads stay f32; logits stay
     f32 and track the f32-matmul run closely. The unquantized baseline is
-    UNTOUCHED (its dot dtype semantics must not change — forcing f32
-    accumulation there regressed the bf16 training baseline 36.5 ->
-    49 ms/step, measured)."""
+    UNTOUCHED (its dot dtype semantics must not change: its bf16 dots stay
+    bf16-in/bf16-out)."""
     import flax
     import jax
     import jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""Collectives audit + analytic scaling model (parallel/audit.py)."""
+"""Collectives audit (parallel/audit.py)."""
 
 import numpy as np
 import pytest
@@ -10,10 +10,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from quantized_vit_tpu.parallel import (
     collective_stats,
     parse_collectives,
-    predict_scaling,
     summarize,
 )
-from quantized_vit_tpu.parallel.audit import ring_time
 
 
 def test_parse_collectives_from_hlo_text():
@@ -49,10 +47,8 @@ def test_collective_stats_on_sharded_matmul():
 
 
 def test_dp_serving_forward_has_zero_collectives():
-    """The scaling report's DP efficiency derives from 'the DP-only
-    lowering contains no collectives' (tools/scaling_report.py
-    audit_dp_collectives — VERDICT r3 weak #3 made it self-verifying).
-    Pin that invariant here on the unsharded serving forward."""
+    """Data-parallel serving communicates nothing: pin that the
+    unsharded serving forward's lowering contains no collectives."""
     import functools
 
     from quantized_vit_tpu.models.vit import ViTConfig
@@ -65,20 +61,5 @@ def test_dp_serving_forward_has_zero_collectives():
     x = jnp.zeros((8, 32, 32, 3), jnp.float32)
     ops = collective_stats(
         jax.jit(functools.partial(vit_int4_forward, cfg=cfg,
-                                  use_pallas=False,
                                   float_dtype=jnp.bfloat16)), art, x)
     assert summarize(ops) == {}, summarize(ops)
-
-
-def test_predict_scaling_monotonic_and_bounded():
-    from quantized_vit_tpu.parallel import CollectiveOp
-
-    ops = [CollectiveOp("all-reduce", "bf16", (8, 197, 768), 2_420_736)] * 24
-    p1 = predict_scaling(8e-3, [], 1)
-    assert p1["efficiency"] == 1.0 and p1["t_comm_s"] == 0.0
-    p4 = predict_scaling(2e-3, ops, 4)
-    p8 = predict_scaling(1e-3, ops, 8)
-    assert 0.0 < p8["efficiency"] < p4["efficiency"] <= 1.0
-    # ring math: all-reduce moves 2*(p-1)/p of the bytes
-    t = ring_time(1e9, 4, 90e9, "all-reduce")
-    assert t == pytest.approx(5e-6 + 2 * 1e9 * 0.75 / 90e9)

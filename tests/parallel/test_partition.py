@@ -81,7 +81,4 @@ def test_dryrun_multichip_entrypoint():
         os.path.dirname(os.path.abspath(__file__)))))
     import __graft_entry__ as ge
 
-    # light=True: the real-shape AOT audit legs are the driver's
-    # and scaling_report's job (they cost ~50 s of deviceless
-    # compiles); this test guards the sharded train-step/parity legs
-    ge.dryrun_multichip(8, light=True)
+    ge.dryrun_multichip(8)

@@ -212,7 +212,7 @@ def test_int_path_top1_within_0p1pct(trained):
 
     art = export_vit_int4(cfg, params)
     y_int = _batched_apply(
-        lambda xb: vit_int4_forward(art, xb, cfg, use_pallas=False), te_x)
+        lambda xb: vit_int4_forward(art, xb, cfg), te_x)
     top1_int = _top1(y_int, te_y)
     assert abs(top1_int - top1_fake) <= 1e-3 + 1e-9, (
         f"INT path top-1 {top1_int} vs fake-quant {top1_fake} "
@@ -221,8 +221,7 @@ def test_int_path_top1_within_0p1pct(trained):
     # int8 attention: dynamic-quantized score/AV matmuls change numerics;
     # the serving default documents <=1% top-1 drift at this scale
     y_ia = _batched_apply(
-        lambda xb: vit_int4_forward(art, xb, cfg, use_pallas=False,
-                                    int_attention=True), te_x)
+        lambda xb: vit_int4_forward(art, xb, cfg, int_attention=True), te_x)
     top1_ia = _top1(y_ia, te_y)
     assert abs(top1_ia - top1_fake) <= 0.01 + 1e-9, (
         f"int8-attention top-1 {top1_ia} vs fake-quant {top1_fake}")
@@ -252,7 +251,7 @@ def test_pruned_subnet_int_path_top1_within_0p1pct(trained_pruned):
 
     art = export_vit_int4(cfg, params)
     y_int = _batched_apply(
-        lambda xb: vit_int4_forward(art, xb, cfg, use_pallas=False), te_x)
+        lambda xb: vit_int4_forward(art, xb, cfg), te_x)
     top1_int = _top1(y_int, te_y)
     assert abs(top1_int - top1_fake) <= 1e-3 + 1e-9, (
         f"pruned INT path top-1 {top1_int} vs fake-quant {top1_fake} "
@@ -264,7 +263,7 @@ def test_pruned_subnet_int_path_top1_within_0p1pct(trained_pruned):
 # ---------------------------------------------------------------------------
 
 ALPHA_HARD = 0.25  # template amplitude: float ~0.6 top-1, W4A4 ~0.52
-                   # (calibrated on chip+CPU, tools/exp_sensitive_task.py)
+                   # (calibrated on the CPU)
 
 
 def _fit(model, params, tr_x, tr_y, epochs, lr):
@@ -300,9 +299,7 @@ def sensitive_train():
     path tracks fake-quant within 0.1%' is a falsifiable claim, unlike
     the 99.6%-top-1 easy task where quantization cannot move the
     metric). Recipe mirrors the reference: float pretrain -> 4-bit
-    quantize-wrap -> fine-tune. Module-level (not a fixture) so
-    tools/accuracy_on_chip.py reuses the EXACT recipe for the on-chip
-    leg."""
+    quantize-wrap -> fine-tune."""
     import flax
     import jax
     import jax.numpy as jnp
@@ -377,7 +374,7 @@ def test_sensitive_task_w4a4_gap_and_int_tracks_fake_quant(
 
     art = export_vit_int4(cfg_q, pq)
     y_int = _batched_apply(
-        lambda xb: vit_int4_forward(art, xb, cfg_q, use_pallas=False),
+        lambda xb: vit_int4_forward(art, xb, cfg_q),
         te_x)
     top1_int = _top1(y_int, te_y)
     assert abs(top1_int - top1_fake) <= 1e-3 + 1e-9, (

@@ -92,7 +92,7 @@ def test_vit_int4_artifact_through_batcher_matches_direct():
 
     def forward(images):
         return np.asarray(vit_int4_forward(
-            art, jnp.asarray(images, jnp.float32), cfg, use_pallas=False))
+            art, jnp.asarray(images, jnp.float32), cfg))
 
     rng = np.random.default_rng(0)
     imgs = rng.standard_normal((6, 16, 16, 3)).astype(np.float32)
@@ -107,7 +107,7 @@ def test_vit_int4_artifact_through_batcher_matches_direct():
 def test_backlog_forms_full_batches():
     """Regression: requests older than max_delay must still batch together
     — the age-based deadline only bounds waiting for FUTURE requests. (A
-    256-request burst on TPU previously degenerated to size-1 batches at 28
+    256-request burst previously degenerated to size-1 batches at 28
     rps once the queue aged past the 5ms deadline.)"""
     import numpy as np
 

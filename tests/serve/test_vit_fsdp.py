@@ -1,6 +1,5 @@
 """FSDP weight-gather serving forward (serve/vit_fsdp.py) on the virtual
-mesh — the IMPLEMENTED version of the >=85%-efficiency memory-sharded mode
-the round-3 audit observed only on the GSPMD path (VERDICT r3 #1b).
+mesh.
 
 Asserts (a) exact parity against the single-device forward for BOTH weight
 formats (column sharding must not disturb int4 packing), (b) the
@@ -46,13 +45,11 @@ def test_fsdp_forward_exact_parity(tp, packed):
     imgs = jnp.array(
         np.random.default_rng(3).standard_normal((8, 32, 32, 3)),
         jnp.float32)
-    ref = vit_int4_forward(art, imgs, cfg, use_pallas=False,
-                           float_dtype=jnp.float32)
+    ref = vit_int4_forward(art, imgs, cfg, float_dtype=jnp.float32)
     mesh = _mesh(8 // (2 * tp) if tp == 2 else 1, tp)
     art_f = shard_fsdp_artifact(prepare_fsdp_artifact(art, cfg, tp), mesh)
     x = jax.device_put(imgs, NamedSharding(mesh, P(("data", "model"))))
-    out = vit_int4_forward_fsdp(art_f, x, cfg, mesh, use_pallas=False,
-                                float_dtype=jnp.float32)
+    out = vit_int4_forward_fsdp(art_f, x, cfg, mesh, float_dtype=jnp.float32)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
 
@@ -67,8 +64,7 @@ def test_fsdp_collectives_exactly_four_weight_gathers_per_block():
     art_f = shard_fsdp_artifact(prepare_fsdp_artifact(art, cfg, 4), mesh)
     x = jax.device_put(imgs, NamedSharding(mesh, P(("data", "model"))))
     fn = jax.jit(functools.partial(
-        vit_int4_forward_fsdp, cfg=cfg, mesh=mesh, use_pallas=False,
-        float_dtype=jnp.bfloat16))
+        vit_int4_forward_fsdp, cfg=cfg, mesh=mesh, float_dtype=jnp.bfloat16))
     with mesh:
         ops = collective_stats(fn, art_f, x)
     s = summarize(ops)
@@ -102,75 +98,3 @@ def test_fsdp_prep_rejects_nondividing_width():
     art = random_vit_int4_artifact(cfg, seed=0, pack_weights=False)
     with pytest.raises(ValueError, match="not divisible"):
         prepare_fsdp_artifact(art, cfg, 8)
-
-
-# ---------------------------------------------------------------------------
-# in-kernel RDMA gather mode (VERDICT r4 #2, ops/ring_gather.py)
-# ---------------------------------------------------------------------------
-
-from jax.experimental.pallas import tpu as pltpu
-
-from quantized_vit_tpu.serve import (prepare_fsdp_rdma_artifact,
-                                     shard_fsdp_rdma_artifact,
-                                     vit_int4_forward_fsdp_rdma)
-
-# eager DMA simulation: "on_wait" is orders of magnitude slower for
-# multi-program kernels (tests/ops/test_ring_gather.py note)
-_IP = pltpu.InterpretParams(dma_execution_mode="eager")
-
-
-def _rdma_cfg():
-    # dims chosen so every weight is 128-lane aligned for the int8 MLP
-    # kernel and rows are 32-aligned per tp=2 shard
-    return ViTConfig(img_size=32, patch_size=16, embed_dim=128, depth=2,
-                     num_heads=2, num_classes=10)
-
-
-def test_fsdp_rdma_forward_exact_parity():
-    """The RDMA path gathers bit-identical weights and runs the same
-    per-device compute -> logits exactly equal the single-device forward
-    (interpret mode simulates the remote DMAs on the CPU mesh)."""
-    cfg = _rdma_cfg()
-    art = random_vit_int4_artifact(cfg, seed=5, pack_weights=False)
-    imgs = jnp.array(
-        np.random.default_rng(5).standard_normal((4, 32, 32, 3)),
-        jnp.float32)
-    ref = vit_int4_forward(art, imgs, cfg, use_pallas=False,
-                           float_dtype=jnp.float32)
-    mesh = _mesh(2, 2)
-    art_r = shard_fsdp_rdma_artifact(
-        prepare_fsdp_rdma_artifact(art, cfg, 2), mesh)
-    x = jax.device_put(imgs, NamedSharding(mesh, P(("data", "model"))))
-    out = vit_int4_forward_fsdp_rdma(art_r, x, cfg, mesh,
-                                     float_dtype=jnp.float32,
-                                     interpret=_IP)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-
-def test_fsdp_rdma_only_bootstrap_gather_in_xla():
-    """The whole point: the steady-state gathers live INSIDE the Mosaic
-    kernels where the scheduler can't serialize them. The XLA collective
-    schedule must contain ONLY block 0's bootstrap gathers (4), not
-    4*depth."""
-    cfg = _rdma_cfg()
-    art = random_vit_int4_artifact(cfg, seed=0, pack_weights=False)
-    imgs = jnp.zeros((4, 32, 32, 3), jnp.float32)
-    mesh = _mesh(2, 2)
-    art_r = shard_fsdp_rdma_artifact(
-        prepare_fsdp_rdma_artifact(art, cfg, 2), mesh)
-    x = jax.device_put(imgs, NamedSharding(mesh, P(("data", "model"))))
-    fn = jax.jit(functools.partial(
-        vit_int4_forward_fsdp_rdma, cfg=cfg, mesh=mesh,
-        float_dtype=jnp.bfloat16, interpret=_IP))
-    with mesh:
-        ops = collective_stats(fn, art_r, x)
-    s = summarize(ops)
-    assert s.get("all-gather", {}).get("count", 0) == 4, s
-    assert "reduce-scatter" not in s and "all-reduce" not in s, s
-
-
-def test_fsdp_rdma_prep_rejects_packed_mlp():
-    cfg = _rdma_cfg()
-    art = random_vit_int4_artifact(cfg, seed=0, pack_weights=True)
-    with pytest.raises(ValueError, match="int8"):
-        prepare_fsdp_rdma_artifact(art, cfg, 2)

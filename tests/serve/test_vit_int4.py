@@ -1,9 +1,8 @@
 """INT4 serving path parity: exported artifact forward == fake-quant forward.
 
 BASELINE.json config 4 (ViT W4A4 full quantized inference): the integer
-kernel path must reproduce the float fake-quant model because LSFQ values
-are integer multiples of d. Runs the XLA fallback kernels on CPU; the same
-code compiles the Pallas path on TPU (driven by bench.py/__graft_entry__).
+path must reproduce the float fake-quant model because LSFQ values are
+integer multiples of d.
 """
 
 import numpy as np
@@ -54,22 +53,8 @@ def test_int_forward_matches_fake_quant(init_bits):
     cfg, model, params, x = _build(init_bits)
     y_fake = np.asarray(model.apply({"params": params}, x))
     art = export_vit_int4(cfg, params)
-    y_int = np.asarray(vit_int4_forward(art, x, cfg, use_pallas=False))
+    y_int = np.asarray(vit_int4_forward(art, x, cfg))
     np.testing.assert_allclose(y_int, y_fake, rtol=2e-3, atol=2e-3)
-
-
-def test_int_forward_pallas_interpret_matches_xla():
-    """Pallas kernels (interpret mode) and XLA fallback agree bit-for-bit on
-    the integer accumulations, so logits must match to f32 rounding."""
-    cfg, model, params, x = _build(4.0)
-    art = export_vit_int4(cfg, params)
-    y_xla = np.asarray(vit_int4_forward(art, x, cfg, use_pallas=False))
-    import quantized_vit_tpu.ops.int4_matmul as km
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        y_pl = np.asarray(vit_int4_forward(art, x, cfg, use_pallas=True))
-    np.testing.assert_allclose(y_pl, y_xla, rtol=1e-4, atol=1e-4)
 
 
 def test_scan_blocks_matches_unrolled():
@@ -78,10 +63,8 @@ def test_scan_blocks_matches_unrolled():
     loop; non-uniform blocks (e.g. GETA subnets) must fall back safely."""
     cfg, model, params, x = _build(4.0)
     art = export_vit_int4(cfg, params)
-    a = np.asarray(vit_int4_forward(art, x, cfg, use_pallas=False,
-                                    scan_blocks=False))
-    b = np.asarray(vit_int4_forward(art, x, cfg, use_pallas=False,
-                                    scan_blocks=True))
+    a = np.asarray(vit_int4_forward(art, x, cfg, scan_blocks=False))
+    b = np.asarray(vit_int4_forward(art, x, cfg, scan_blocks=True))
     np.testing.assert_array_equal(a, b)
 
 
@@ -100,7 +83,7 @@ def test_nonuniform_bits_mixed_precision_export():
     assert art["blocks"][0]["qkv"].fmt == "int8"
     assert art["blocks"][0]["fc1"].fmt == "int4"
     y_fake = np.asarray(model.apply({"params": params}, x))
-    y_int = np.asarray(vit_int4_forward(art, x, cfg, use_pallas=False))
+    y_int = np.asarray(vit_int4_forward(art, x, cfg))
     np.testing.assert_allclose(y_int, y_fake, rtol=2e-3, atol=2e-3)
 
 
@@ -123,7 +106,7 @@ def test_sharded_serving_matches_unsharded():
 
     cfg, model, params, x = _build(4.0)
     art = export_vit_int4(cfg, params)
-    y_ref = np.asarray(vit_int4_forward(art, x, cfg, use_pallas=False))
+    y_ref = np.asarray(vit_int4_forward(art, x, cfg))
 
     with tempfile.TemporaryDirectory() as d:
         save_vit_int4_artifact(d, art, cfg)
@@ -133,7 +116,7 @@ def test_sharded_serving_matches_unsharded():
         x_sh = jax.device_put(x, NamedSharding(mesh, P("data")))
         with mesh:
             y_sh = np.asarray(
-                vit_int4_forward(art_sh, x_sh, cfg_sh, use_pallas=False))
+                vit_int4_forward(art_sh, x_sh, cfg_sh))
     np.testing.assert_allclose(y_sh, y_ref, rtol=1e-5, atol=1e-5)
 
 
@@ -167,7 +150,7 @@ def test_export_requantizes_layers_above_8_bits():
 
     p8 = reproject(params)
     y_fake = np.asarray(model.apply({"params": p8}, x))
-    y_int = np.asarray(vit_int4_forward(art, x, cfg, use_pallas=False))
+    y_int = np.asarray(vit_int4_forward(art, x, cfg))
     np.testing.assert_allclose(y_int, y_fake, rtol=2e-4, atol=2e-4)
 
 
@@ -179,8 +162,7 @@ def test_patches_layout_matches_nhwc():
 
     cfg, model, params, x = _build(4.0)
     art = export_vit_int4(cfg, params)
-    y_ref = np.asarray(vit_int4_forward(art, x, cfg, use_pallas=False))
+    y_ref = np.asarray(vit_int4_forward(art, x, cfg))
     xp = jnp.asarray(patchify_batch(np.asarray(x), cfg.patch_size))
-    y_p = np.asarray(vit_int4_forward(art, xp, cfg, use_pallas=False,
-                                      images_layout="patches"))
+    y_p = np.asarray(vit_int4_forward(art, xp, cfg, images_layout="patches"))
     np.testing.assert_allclose(y_p, y_ref, rtol=2e-4, atol=2e-4)

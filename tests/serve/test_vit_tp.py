@@ -54,13 +54,11 @@ def test_tp_forward_bit_parity(tp):
     art = random_vit_int4_artifact(cfg, seed=0, pack_weights=False)
     imgs = jnp.array(
         np.random.default_rng(0).standard_normal((8, 32, 32, 3)), jnp.float32)
-    ref = vit_int4_forward(art, imgs, cfg, use_pallas=False,
-                           float_dtype=jnp.float32)
+    ref = vit_int4_forward(art, imgs, cfg, float_dtype=jnp.float32)
     mesh = _mesh(8 // tp, tp)
     art_tp = shard_tp_artifact(prepare_tp_artifact(art, cfg, tp), mesh)
     x = jax.device_put(imgs, NamedSharding(mesh, P(("data", "model"))))
-    out = vit_int4_forward_tp(art_tp, x, cfg, mesh, use_pallas=False,
-                              float_dtype=jnp.float32,
+    out = vit_int4_forward_tp(art_tp, x, cfg, mesh, float_dtype=jnp.float32,
                               comm_dtype=jnp.float32)
     # exact up to f32 summation order of dequantized partials
     # (sum(acc_i)*s vs sum(acc_i*s)) — tight tolerance, not bitwise
@@ -81,13 +79,11 @@ def test_tp_forward_bit_parity_packed_int4(tp):
     art = random_vit_int4_artifact(cfg, seed=2, pack_weights=True)
     imgs = jnp.array(
         np.random.default_rng(2).standard_normal((8, 32, 32, 3)), jnp.float32)
-    ref = vit_int4_forward(art, imgs, cfg, use_pallas=False,
-                           float_dtype=jnp.float32)
+    ref = vit_int4_forward(art, imgs, cfg, float_dtype=jnp.float32)
     mesh = _mesh(8 // tp, tp)
     art_tp = shard_tp_artifact(prepare_tp_artifact(art, cfg, tp), mesh)
     x = jax.device_put(imgs, NamedSharding(mesh, P(("data", "model"))))
-    out = vit_int4_forward_tp(art_tp, x, cfg, mesh, use_pallas=False,
-                              float_dtype=jnp.float32,
+    out = vit_int4_forward_tp(art_tp, x, cfg, mesh, float_dtype=jnp.float32,
                               comm_dtype=jnp.float32)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                rtol=0, atol=1e-4)
@@ -130,13 +126,13 @@ def test_tp_forward_bf16_comm_close():
     art_tp = shard_tp_artifact(prepare_tp_artifact(art, cfg, 2), mesh)
     x = jax.device_put(imgs, NamedSharding(mesh, P(("data", "model"))))
     exact = np.asarray(vit_int4_forward_tp(
-        art_tp, x, cfg, mesh, use_pallas=False, float_dtype=jnp.float32,
+        art_tp, x, cfg, mesh, float_dtype=jnp.float32,
         comm_dtype=jnp.float32))
     served = np.asarray(vit_int4_forward_tp(
-        art_tp, x, cfg, mesh, use_pallas=False, float_dtype=jnp.bfloat16,
+        art_tp, x, cfg, mesh, float_dtype=jnp.bfloat16,
         comm_dtype=jnp.bfloat16), np.float32)
     single_bf16 = np.asarray(vit_int4_forward(
-        art, imgs, cfg, use_pallas=False, float_dtype=jnp.bfloat16),
+        art, imgs, cfg, float_dtype=jnp.bfloat16),
         np.float32)
     dev_tp = np.abs(served - exact).max()
     dev_single = np.abs(single_bf16 - exact).max()
@@ -147,7 +143,7 @@ def test_tp_forward_bf16_comm_close():
 def test_tp_collectives_exactly_two_ag_two_rs_per_block(tp):
     """The audited HLO must contain exactly 2 all-gathers and 2
     reduce-scatters per block and NO all-to-all / extra all-reduce — the
-    failure mode of the GSPMD path (docs/SCALING.md)."""
+    failure mode of the GSPMD path."""
     cfg = _cfg(depth=3)
     art = random_vit_int4_artifact(cfg, seed=0, pack_weights=False)
     imgs = jnp.zeros((8, 32, 32, 3), jnp.float32)
@@ -155,8 +151,8 @@ def test_tp_collectives_exactly_two_ag_two_rs_per_block(tp):
     art_tp = shard_tp_artifact(prepare_tp_artifact(art, cfg, tp), mesh)
     x = jax.device_put(imgs, NamedSharding(mesh, P(("data", "model"))))
     fn = jax.jit(functools.partial(
-        vit_int4_forward_tp, cfg=cfg, mesh=mesh, use_pallas=False,
-        float_dtype=jnp.bfloat16, comm_dtype=jnp.bfloat16))
+        vit_int4_forward_tp, cfg=cfg, mesh=mesh, float_dtype=jnp.bfloat16,
+        comm_dtype=jnp.bfloat16))
     with mesh:
         ops = collective_stats(fn, art_tp, x)
     s = summarize(ops)

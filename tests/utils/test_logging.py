@@ -46,7 +46,7 @@ def test_profile_trace_captures_and_aggregates(tmp_path):
         x = jnp.ones((128, 128))
         (x @ x).block_until_ready()
     # CPU-only run: a trace dir exists; kernel aggregation returns a dict
-    # (possibly empty on CPU where no TPU/GPU pid is present)
+    # (possibly empty on CPU where no device pid is present)
     assert os.path.isdir(tmp_path)
     times = device_kernel_times(str(tmp_path))
     assert isinstance(times, dict)
