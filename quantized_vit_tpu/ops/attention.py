@@ -19,14 +19,6 @@ import jax.numpy as jnp
 from .fused import _quantize_f32
 
 
-def _n_keys(n: int, n_valid: int, itemsize: int) -> int:
-    """Key/value row count: key rows beyond ``n_valid`` are masked anyway,
-    so the k/v slice stops at the next multiple of 16 (bf16) or 8 (f32)
-    rows instead of running over every padded row."""
-    sub = 16 if itemsize == 2 else 8
-    return min(n, -(-n_valid // sub) * sub)
-
-
 _LOG2E = 1.4426950408889634
 
 
@@ -46,11 +38,10 @@ def attention_qkv_xla(qkv, *, heads, sm_scale, n_valid=None,
     head_dim = three_hdim // (3 * heads)
     if n_valid is None:
         n_valid = n
-    nk = _n_keys(n, n_valid, qkv.dtype.itemsize)
     prec = (jax.lax.Precision.HIGHEST if qkv.dtype == jnp.float32
             else None)
     x = qkv.reshape(b, n, 3, heads, head_dim)
-    q, k, v = x[:, :, 0], x[:, :nk, 1], x[:, :nk, 2]  # [B, N|nk, H, hd]
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]  # [B, N, H, hd]
     if int_attention:
         def dyn(z):  # per-(b, h) scale over the (n, hd) axes
             z = z.astype(jnp.float32)
@@ -68,8 +59,8 @@ def attention_qkv_xla(qkv, *, heads, sm_scale, n_valid=None,
         qs = (q.astype(jnp.float32) * (sm_scale * _LOG2E)).astype(q.dtype)
         s2 = jnp.einsum("bnhd,bmhd->bhnm", qs, k, precision=prec,
                         preferred_element_type=jnp.float32)
-    if n_valid < nk:
-        col = jnp.arange(nk)
+    if n_valid < n:
+        col = jnp.arange(n)
         s2 = jnp.where(col[None, None, None, :] < n_valid, s2, -1e30)
     if int_attention:
         p = jnp.exp2(s2 - jnp.max(s2, axis=-1, keepdims=True))

@@ -49,16 +49,10 @@ def _quantize_f32(x, d, t, top, act_pow: bool, folded: bool = False):
     return lv.astype(jnp.int8)
 
 
-def _layernorm_f32(x, gamma, beta, eps, k_real=None):
-    """LayerNorm in f32, fast-variance form (matches flax.linen.LayerNorm).
-
-    ``k_real``: true feature count when the lane dim carries zero padding —
-    sums ignore zero lanes, so dividing by k_real recovers the unpadded
-    statistics; padded gamma/beta are zero, keeping padded outputs at 0.
-    """
+def _layernorm_f32(x, gamma, beta, eps):
+    """LayerNorm in f32, fast-variance form (matches flax.linen.LayerNorm)."""
     x32 = x.astype(jnp.float32)
-    k = k_real if k_real is not None else x.shape[-1]
-    inv_k = 1.0 / float(k)
+    inv_k = 1.0 / float(x.shape[-1])
     mu = jnp.sum(x32, axis=-1, keepdims=True) * inv_k
     mean2 = jnp.sum(jnp.square(x32), axis=-1, keepdims=True) * inv_k
     var = jnp.maximum(mean2 - jnp.square(mu), 0.0)
@@ -142,17 +136,11 @@ def fused_quant_matmul_xla(
 
     if prologue is None:
         lv = x
-    elif prologue == "gelu_quant":
-        # x carries z = y/sqrt(2) from the producer (_gelu_quant_folded)
-        lv = _gelu_quant_folded(x.astype(jnp.float32),
-                                jnp.asarray(act_d, jnp.float32),
-                                jnp.asarray(act_top, jnp.int32))
     else:
         xx = x
         if prologue == "ln_quant":
             xx = _layernorm_f32(xx, jnp.asarray(ln_scale, jnp.float32),
-                                jnp.asarray(ln_bias, jnp.float32), ln_eps,
-                                k_real=x.shape[-1])
+                                jnp.asarray(ln_bias, jnp.float32), ln_eps)
         lv = _quantize_f32(xx, jnp.asarray(act_d, jnp.float32),
                            jnp.asarray(act_t, jnp.float32),
                            jnp.asarray(act_top, jnp.int32), act_pow,

@@ -67,11 +67,10 @@ def _attention(x, blk, hd: int, sm_scale: float):
     return _qdense(o.reshape(b, n, heads * hd), blk["proj"])
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "images_layout"))
-def vit_reference_forward(art: Dict[str, Any], images, cfg: ViTConfig,
-                          images_layout: str = "nhwc"):
-    """Float32 logits of a serving artifact. images: [B, H, W, C] float, or
-    [B, (H/P)*(W/P), P*P*C] with ``images_layout='patches'``."""
+def reference_embed(art: Dict[str, Any], images, cfg: ViTConfig,
+                    images_layout: str = "nhwc"):
+    """Patch embedding, cls token and position embedding: [B, N, D] f32,
+    cls first. images as for :func:`vit_reference_forward`."""
     p = cfg.patch_size
     b = images.shape[0]
     x = jnp.asarray(images, jnp.float32)
@@ -82,15 +81,25 @@ def vit_reference_forward(art: Dict[str, Any], images, cfg: ViTConfig,
     x = _qdense(x, art["patch_embed"])                     # [B, N-1, D]
     cls = jnp.broadcast_to(jnp.asarray(art["cls_token"], jnp.float32),
                            (b, 1, x.shape[-1]))
-    x = jnp.concatenate([cls, x], axis=1) + art["pos_embed"]
+    return jnp.concatenate([cls, x], axis=1) + art["pos_embed"]
 
+
+def reference_attn(x, blk: Dict[str, Any], cfg: ViTConfig):
+    """x + attention(LN1(x)) on the [B, N, D] f32 residual stream."""
     hd = cfg.embed_dim // cfg.num_heads
     sm_scale = cfg.qk_scale if cfg.qk_scale is not None else hd**-0.5
-    for blk in art["blocks"]:
-        x = x + _attention(_layernorm(x, blk["norm1"]), blk, hd, sm_scale)
-        h = _qdense(_layernorm(x, blk["norm2"]), blk["fc1"])
-        x = x + _qdense(jax.nn.gelu(h, approximate=False), blk["fc2"])
+    return x + _attention(_layernorm(x, blk["norm1"]), blk, hd, sm_scale)
 
+
+def reference_mlp(x, blk: Dict[str, Any]):
+    """x + fc2(GELU(fc1(LN2(x)))) on the [B, N, D] f32 residual stream."""
+    h = _qdense(_layernorm(x, blk["norm2"]), blk["fc1"])
+    return x + _qdense(jax.nn.gelu(h, approximate=False), blk["fc2"])
+
+
+def reference_head(x, art: Dict[str, Any]):
+    """Final LayerNorm on the cls token of [B, N, D], optional tanh
+    pre-logits, classifier: f32 logits."""
     x = _layernorm(x, art["norm"])[:, 0]
     if "pre_logits" in art:
         x = jnp.tanh(jnp.dot(x, art["pre_logits"]["kernel"], precision=_HI)
@@ -98,3 +107,14 @@ def vit_reference_forward(art: Dict[str, Any], images, cfg: ViTConfig,
     if "head" in art:
         x = _qdense(x, art["head"])
     return x
+
+
+@functools.partial(jax.jit, static_argnames=("cfg", "images_layout"))
+def vit_reference_forward(art: Dict[str, Any], images, cfg: ViTConfig,
+                          images_layout: str = "nhwc"):
+    """Float32 logits of a serving artifact. images: [B, H, W, C] float, or
+    [B, (H/P)*(W/P), P*P*C] with ``images_layout='patches'``."""
+    x = reference_embed(art, images, cfg, images_layout)
+    for blk in art["blocks"]:
+        x = reference_mlp(reference_attn(x, blk, cfg), blk)
+    return reference_head(x, art)

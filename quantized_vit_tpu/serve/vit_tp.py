@@ -207,9 +207,59 @@ def _ln_quant(x, ln, entry: QLayerArtifact, ln_eps: float = 1e-6):
         inv_d = 1.0 / d
         gamma = gamma * inv_d
         beta = beta * inv_d
-    y = _layernorm_f32(x, gamma, beta, ln_eps, k_real=x.shape[-1])
+    y = _layernorm_f32(x, gamma, beta, ln_eps)
     return _quantize_f32(y, d, t, jnp.asarray(entry.top, jnp.int32),
                          entry.act_pow, folded=folded)
+
+
+def tp_block(x2d, blk, *, b_grp: int, n_pad: int, n_real: int, hd: int,
+             sm_scale: float, float_dtype, comm_dtype):
+    """One transformer block inside the 'model'-axis shard_map of
+    :func:`vit_int4_forward_tp`: x2d is this device's [b_loc * n_pad, D]
+    residual rows, ``b_grp`` = b_loc * tp the images of the model group.
+    Communicates 2 int8 all-gathers and 2 ``comm_dtype`` reduce-scatters."""
+    proj_e = blk["proj"]
+    fc2_e = blk["fc2"]
+    heads_loc = blk["qkv"].w.shape[1] // (3 * hd)
+
+    # -- attention: int8 AG -> column qkv -> local heads -> row RS
+    lv = _ln_quant(x2d, blk["norm1"], blk["qkv"])
+    lv_all = jax.lax.all_gather(lv, "model", axis=0, tiled=True)
+    qkv = _qmatmul(lv_all, blk["qkv"], float_dtype,
+                   prologue=None, epilogue=None)
+    alv = attention_qkv_xla(
+        qkv.reshape(b_grp, n_pad, 3 * heads_loc * hd),
+        heads=heads_loc, sm_scale=sm_scale, n_valid=n_real,
+        out_d=proj_e.act["d"], out_t=proj_e.act["t"],
+        out_top=proj_e.top, out_pow=proj_e.act_pow,
+    )
+    part = _qmatmul(
+        alv.reshape(b_grp * n_pad, heads_loc * hd),
+        dataclasses.replace(proj_e, bias=None), jnp.float32,
+        prologue=None, epilogue=None,
+    ).astype(comm_dtype)
+    part = jax.lax.psum_scatter(part, "model", scatter_dimension=0,
+                                tiled=True)
+    x2d = (x2d.astype(jnp.float32) + part.astype(jnp.float32)
+           + proj_e.bias).astype(float_dtype)
+
+    # -- MLP: int8 AG -> column fc1 (+GELU+quant) -> row fc2 RS
+    lv2 = _ln_quant(x2d, blk["norm2"], blk["fc1"])
+    lv2_all = jax.lax.all_gather(lv2, "model", axis=0, tiled=True)
+    hlv = _qmatmul(
+        lv2_all, blk["fc1"], float_dtype,
+        prologue=None, epilogue="gelu_quant",
+        out_d=fc2_e.act["d"], out_t=fc2_e.act["t"],
+        out_top=fc2_e.top, out_pow=fc2_e.act_pow,
+    )
+    part2 = _qmatmul(
+        hlv, dataclasses.replace(fc2_e, bias=None), jnp.float32,
+        prologue=None, epilogue=None,
+    ).astype(comm_dtype)
+    part2 = jax.lax.psum_scatter(part2, "model", scatter_dimension=0,
+                                 tiled=True)
+    return (x2d.astype(jnp.float32) + part2.astype(jnp.float32)
+            + fc2_e.bias).astype(float_dtype)
 
 
 @functools.partial(
@@ -263,51 +313,10 @@ def vit_int4_forward_tp(art, images, cfg: ViTConfig, mesh: Mesh,
                           * jnp.float32(input_scale))
         x2d, _, dim = _embed_tokens(art, images_loc, cfg, float_dtype,
                                     images_layout, n_align=16)
-        b_grp = b_loc * tp
-
         for blk in art["blocks"]:
-            proj_e = blk["proj"]
-            fc2_e = blk["fc2"]
-            heads_loc = blk["qkv"].w.shape[1] // (3 * hd)
-
-            # -- attention: int8 AG -> column qkv -> local heads -> row RS
-            lv = _ln_quant(x2d, blk["norm1"], blk["qkv"])
-            lv_all = jax.lax.all_gather(lv, "model", axis=0, tiled=True)
-            qkv = _qmatmul(lv_all, blk["qkv"], float_dtype,
-                           prologue=None, epilogue=None)
-            alv = attention_qkv_xla(
-                qkv.reshape(b_grp, n_pad, 3 * heads_loc * hd),
-                heads=heads_loc, sm_scale=sm_scale, n_valid=n_real,
-                out_d=proj_e.act["d"], out_t=proj_e.act["t"],
-                out_top=proj_e.top, out_pow=proj_e.act_pow,
-            )
-            part = _qmatmul(
-                alv.reshape(b_grp * n_pad, heads_loc * hd),
-                dataclasses.replace(proj_e, bias=None), jnp.float32,
-                prologue=None, epilogue=None,
-            ).astype(comm_dtype)
-            part = jax.lax.psum_scatter(part, "model", scatter_dimension=0,
-                                        tiled=True)
-            x2d = (x2d.astype(jnp.float32) + part.astype(jnp.float32)
-                   + proj_e.bias).astype(float_dtype)
-
-            # -- MLP: int8 AG -> column fc1 (+GELU+quant) -> row fc2 RS
-            lv2 = _ln_quant(x2d, blk["norm2"], blk["fc1"])
-            lv2_all = jax.lax.all_gather(lv2, "model", axis=0, tiled=True)
-            hlv = _qmatmul(
-                lv2_all, blk["fc1"], float_dtype,
-                prologue=None, epilogue="gelu_quant",
-                out_d=fc2_e.act["d"], out_t=fc2_e.act["t"],
-                out_top=fc2_e.top, out_pow=fc2_e.act_pow,
-            )
-            part2 = _qmatmul(
-                hlv, dataclasses.replace(fc2_e, bias=None), jnp.float32,
-                prologue=None, epilogue=None,
-            ).astype(comm_dtype)
-            part2 = jax.lax.psum_scatter(part2, "model",
-                                         scatter_dimension=0, tiled=True)
-            x2d = (x2d.astype(jnp.float32) + part2.astype(jnp.float32)
-                   + fc2_e.bias).astype(float_dtype)
+            x2d = tp_block(x2d, blk, b_grp=b_loc * tp, n_pad=n_pad,
+                           n_real=n_real, hd=hd, sm_scale=sm_scale,
+                           float_dtype=float_dtype, comm_dtype=comm_dtype)
 
         # head on OWN images' cls rows (sequence shards hold whole images)
         return _head(x2d.reshape(b_loc, n_pad, dim)[:, n_real - 1], art)
